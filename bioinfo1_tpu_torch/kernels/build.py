@@ -1,0 +1,138 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Every ``bioinfo1_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface,
+``build/torch_kernels/libbioinfo1_torch_kernels.so``, and bound with
+``ctypes``: pointers are ``c_void_p`` (``tensor.data_ptr()``), the stream is
+``torch.cuda.current_stream().cuda_stream``.  The build runs at first use
+and again whenever a source's hash changes (the hash is stamped beside the
+library).  Each C entry point returns ``cudaGetLastError()`` right after
+its launch; ``launch`` raises if that is not 0.
+
+A failed build or launch raises.  There is no fallback: the plain PyTorch
+versions are taken only for tensors that lie on the CPU, by the wrappers in
+``ops/``, before they ever reach this module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "libbioinfo1_torch_kernels.so")
+NVCC_LOG = os.path.join(BUILD_DIR, "nvcc.log")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: argument types (all return int = cudaError_t).
+_SIGNATURES = {
+    # f, r, count, R, N, packed_scratch, prev_scratch, out, use_smem, stream
+    "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
+    # q, n, n_pad, t, m, m_eff, q_len, t_len, B, W, n_steps, mode,
+    # dash_free, match, mismatch, gap, scratch, out, use_smem, stream
+    "bioinfo1_band_score": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P, _P, _I, _P],
+    # q, n, t, m, q_len, t_len, B, mode, match, mismatch, gap, scratch,
+    # out, use_smem, stream
+    "bioinfo1_full_score": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P, _I, _P],
+}
+
+# Shared memory a block may ask for on Hopper is 227 KB; keep headroom for
+# the kernels' static reduction buffers.
+SMEM_LIMIT = 220 * 1024
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def source_hash() -> str:
+    """sha256 over the nvcc flags and every source and header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def ensure_built() -> float:
+    """Build the library if it is missing or stale; seconds spent building
+    (0.0 when the stamped hash matched)."""
+    want = source_hash()
+    stamp = LIB_PATH + ".sha256"
+    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
+        with open(stamp) as fh:
+            if fh.read().strip() == want:
+                return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[p for p in _sources() if p.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(NVCC_LOG, "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, LIB_PATH)
+    with open(stamp, "w") as fh:
+        fh.write(want)
+    return time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            ensure_built()
+            lib = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.bioinfo1_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.bioinfo1_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(wrapper, name: str, *args) -> None:
+    """Call C entry point ``name``; raise on a CUDA error, else count one
+    launch on ``wrapper.launches``."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.bioinfo1_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    with _lock:
+        wrapper.launches += 1
