@@ -1,15 +1,17 @@
-"""Command-line driver, score-only slice (port of bioinfo1_tpu/cli.py).
+"""Command-line entry point (port of bioinfo1_tpu/cli.py).
 
 Same surface, defaults, help/version text and exit codes as the JAX
-package's CLI for the flags this slice runs: ``-a -m -n -g -k -w -f -s -o
---resume --profile --batch-size --save-index --load-index -h --version``,
-``--bug-compat`` (except FASTA match nesting) and ``--devices`` 0 or 1.
-The device comes from ``BIOINFO1_PLATFORM`` (``cuda`` by default, or
-``cpu``).
+package's CLI for the flags the port runs: ``-a -m -n -g -k -w -f -c -s -o
+--sam-cigar --resume --profile --batch-size --save-index --load-index -h
+--version``, ``--bug-compat`` (except FASTA match nesting) and
+``--devices`` 0 or 1.  The device comes from ``BIOINFO1_PLATFORM``
+(``cuda`` by default, or ``cpu``).
 
 Refused with rc 1 and a one-line message, never silently ignored: ``-c``
-(with or without ``--sam-cigar``), ``--bug-compat`` on a FASTA reads file
-(FASTA match nesting), ``--devices N`` with N > 1, and the multi-process
+where no exactness certificate exists (``-a global`` with ``-g >= 0``,
+``-a local`` / ``semiGlobal`` with ``-g > 0``), ``--bug-compat`` on a
+FASTA reads file (FASTA match nesting) - both run on the JAX package's
+staged host path - ``--devices N`` with N > 1, and the multi-process
 variables ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
 ``JAX_PROCESS_ID``.
 """
@@ -37,7 +39,8 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
     out = stdout if stdout is not None else sys.stdout
     err = stderr if stderr is not None else sys.stderr
 
-    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    from bioinfo1_tpu_torch.pipeline.mapper import (Mapper, MapperConfig,
+                                                    unported_features)
 
     cfg = MapperConfig()
     file1 = file2 = ""
@@ -96,10 +99,11 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         elif a == "-s":
             statistic = True
         elif a == "--sam-cigar":
-            pass    # shapes only -c CIGARs, which are refused below
+            cfg.sam_cigar = True
         elif a == "--bug-compat":
             cfg.banned_rev_from_fwd = True
             cfg.fasta_match_nesting = True
+            cfg.local_target_begin_end = True
             cfg.threshold_from_rev_unique = True
             cfg.exact_ties = True
             cfg.oob_end_windows = True
@@ -137,12 +141,11 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         print(HELP_TEXT, end="", file=out)
         return 1
 
-    refused = None
-    if cfg.output_cigar:
-        refused = "-c (CIGAR output, with or without --sam-cigar)"
-    elif cfg.devices > 1:
-        refused = f"--devices {cfg.devices} (more than one device)"
-    elif any(os.environ.get(v) for v in _MULTI_PROCESS_VARS):
+    # FASTA match nesting is refused below, once the reads file is known.
+    refused = (unported_features(
+        dataclasses.replace(cfg, fasta_match_nesting=False)) or [None])[0]
+    if refused is None and any(os.environ.get(v)
+                               for v in _MULTI_PROCESS_VARS):
         refused = ("a multi-process run (" + " / ".join(_MULTI_PROCESS_VARS)
                    + ")")
     if refused:

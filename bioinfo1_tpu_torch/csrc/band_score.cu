@@ -1,7 +1,11 @@
-// K2 - banded anti-diagonal alignment score, one CTA per read.
+// K2 - banded anti-diagonal alignment score, one CTA per read, and
+// K4 - the same sweep also emitting the traceback parents.
 //
 // Replaces the Pallas kernel bioinfo1_tpu/ops/pallas_band.py `_kernel`
-// with want_parents=False (reached through `align_scores_banded`).
+// (reached through `align_scores_banded`): K2 is its want_parents=False
+// instantiation, K4 its want_parents=True one.  As on the TPU, one kernel
+// body takes the flag as a compile-time parameter, so K2's code is the
+// score-only loop it always was.
 //
 // Coordinates as in the Pallas kernel: anti-diagonal d = i + j; lane l of
 // the W-lane band holds offset o = 2l - W + (d & 1), so i = i0 - l with
@@ -24,6 +28,19 @@
 // that hit L1.  The two previous diagonals and the one being written live
 // in shared memory (12*W bytes) while that fits; wider bands (the realign
 // pass can reach whole-matrix widths) use a per-read global scratch.
+//
+// K4's parents (pallas_band.py:179-188, 201-255): each cell's 2-bit M>I>D
+// choice (first set, strictly greater), taken before the local clamp and
+// the border masks; with dash_free only the '-' compares drop out (the
+// shared-gap shortcut max(left, up) + gap would lose the I/D choice).
+// Step idx = d - 2 sits at byte row idx >> 2, bit 2 * (idx & 3), lane l.
+// The thread owning lane l ORs 4 consecutive diagonals into a one-byte
+// accumulator kept beside the diagonals (shared memory or the global
+// scratch, W more bytes), then stores the byte at par[idx >> 2][b][l]:
+// the stores of one diagonal are coalesced across lanes.  The read's last
+// diagonal stores its partial byte; bits past it are 0.  Rows after a
+// read's last diagonal are never written (the walk never reads them).
+// K4 adds one quarter byte of device-memory traffic per band cell.
 
 #include "common.cuh"
 
@@ -32,13 +49,20 @@ namespace {
 constexpr int kNeg = -(1 << 30);  // pallas_band._NEG
 constexpr unsigned char kDash = 45;
 
+// Per-read state in ints: three diagonals, plus W parent-accumulator bytes
+// for K4.
+__host__ __device__ inline int state_ints(int W, bool parents) {
+  return 3 * W + (parents ? W / 4 : 0);
+}
+
+template <bool kParents>
 __global__ void band_score_kernel(
     const unsigned char* __restrict__ q, int n, int n_pad,
     const unsigned char* __restrict__ t, int m, int m_eff,
     const int* __restrict__ q_len, const int* __restrict__ t_len, int B,
     int W, int n_steps, int mode, int dash_free, int match, int mismatch,
     int gap, int* __restrict__ scratch, int* __restrict__ out,
-    int use_smem) {
+    int use_smem, unsigned char* __restrict__ par) {
   extern __shared__ int smem[];
   __shared__ long long red[32];
   const int b = blockIdx.x;
@@ -50,10 +74,14 @@ __global__ void band_score_kernel(
   const int half = W / 2;
   const int t_have = min(m, m_eff);
 
-  int* buf = use_smem ? smem : scratch + static_cast<size_t>(b) * 3 * W;
+  int* buf = use_smem ? smem
+                      : scratch + static_cast<size_t>(b) *
+                                      state_ints(W, kParents);
   int* h2 = buf;          // diagonal d-2
   int* h1 = buf + W;      // diagonal d-1
   int* h0 = buf + 2 * W;  // diagonal d
+  // K4: lane l's parent byte in progress.
+  unsigned char* pacc = reinterpret_cast<unsigned char*>(buf + 3 * W);
   for (int l = threadIdx.x; l < W; l += blockDim.x) {
     h2[l] = l == half ? 0 : kNeg;
     h1[l] = (l == half || l == half - 1) ? init : kNeg;
@@ -68,6 +96,11 @@ __global__ void band_score_kernel(
     const int p = d & 1;
     const int i0 = (d + W) >> 1;
     long long key = LLONG_MIN;  // local: (cost << 32) | lane
+    const int sub = (d - 2) & 3;
+    const bool store = sub == 3 || d == d_stop;
+    unsigned char* prow =
+        kParents ? par + (static_cast<size_t>((d - 2) >> 2) * B + b) * W
+                 : nullptr;
     for (int l = threadIdx.x; l < W; l += blockDim.x) {
       const int i = i0 - l;
       const int j = d - i;
@@ -90,7 +123,27 @@ __global__ void band_score_kernel(
       }
       const int diag_v = h2[l] + (qb == tb ? match : mismatch);
       int h;
-      if (dash_free) {
+      if constexpr (kParents) {
+        const int left_v = left + (!dash_free && tb == kDash ? 0 : gap);
+        const int up_v = up + (!dash_free && qb == kDash ? 0 : gap);
+        int pa = 0;
+        h = diag_v;
+        if (left_v > h) {
+          h = left_v;
+          pa = 1;
+        }
+        if (up_v > h) {
+          h = up_v;
+          pa = 2;
+        }
+        const unsigned acc =
+            (sub == 0 ? 0u : pacc[l]) | static_cast<unsigned>(pa << (2 * sub));
+        if (store) {
+          prow[l] = static_cast<unsigned char>(acc);
+        } else {
+          pacc[l] = static_cast<unsigned char>(acc);
+        }
+      } else if (dash_free) {
         h = max(diag_v, max(left, up) + gap);
       } else {
         const int left_v = left + (tb == kDash ? 0 : gap);
@@ -175,9 +228,31 @@ __global__ void band_score_kernel(
   }
 }
 
+template <bool kParents>
+int launch_band(const void* q, int n, int n_pad, const void* t, int m,
+                int m_eff, const void* q_len, const void* t_len, int B, int W,
+                int n_steps, int mode, int dash_free, int match, int mismatch,
+                int gap, void* scratch, void* out, int use_smem, void* par,
+                void* stream) {
+  const size_t smem =
+      use_smem ? static_cast<size_t>(4) * state_ints(W, kParents) : 0;
+  cudaError_t e = bioinfo1::allow_smem(band_score_kernel<kParents>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int threads = W < 512 ? W : 512;
+  band_score_kernel<kParents>
+      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const unsigned char*>(q), n, n_pad,
+          static_cast<const unsigned char*>(t), m, m_eff,
+          static_cast<const int*>(q_len), static_cast<const int*>(t_len), B,
+          W, n_steps, mode, dash_free, match, mismatch, gap,
+          static_cast<int*>(scratch), static_cast<int*>(out), use_smem,
+          static_cast<unsigned char*>(par));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q: (B, n) uint8; t: (B, m) uint8; q_len/t_len: (B,) int32; scratch:
+// K2.  q: (B, n) uint8; t: (B, m) uint8; q_len/t_len: (B,) int32; scratch:
 // (B, 3, W) int32 when use_smem == 0; out: (3, B) int32 rows score,
 // goal_i, goal_j.  W is a multiple of 128.
 extern "C" int bioinfo1_band_score(const void* q, int n, int n_pad,
@@ -187,15 +262,21 @@ extern "C" int bioinfo1_band_score(const void* q, int n, int n_pad,
                                    int dash_free, int match, int mismatch,
                                    int gap, void* scratch, void* out,
                                    int use_smem, void* stream) {
-  const size_t smem = use_smem ? static_cast<size_t>(12) * W : 0;
-  cudaError_t e = bioinfo1::allow_smem(band_score_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = W < 512 ? W : 512;
-  band_score_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(q), n, n_pad,
-      static_cast<const unsigned char*>(t), m, m_eff,
-      static_cast<const int*>(q_len), static_cast<const int*>(t_len), B, W,
-      n_steps, mode, dash_free, match, mismatch, gap,
-      static_cast<int*>(scratch), static_cast<int*>(out), use_smem);
-  return static_cast<int>(cudaGetLastError());
+  return launch_band<false>(q, n, n_pad, t, m, m_eff, q_len, t_len, B, W,
+                            n_steps, mode, dash_free, match, mismatch, gap,
+                            scratch, out, use_smem, nullptr, stream);
+}
+
+// K4.  As K2, plus par: (steps_pad / 4, B, W) uint8 parents; scratch is
+// (B, 3 * W + W / 4) int32 when use_smem == 0.
+extern "C" int bioinfo1_band_parents(const void* q, int n, int n_pad,
+                                     const void* t, int m, int m_eff,
+                                     const void* q_len, const void* t_len,
+                                     int B, int W, int n_steps, int mode,
+                                     int dash_free, int match, int mismatch,
+                                     int gap, void* scratch, void* out,
+                                     int use_smem, void* par, void* stream) {
+  return launch_band<true>(q, n, n_pad, t, m, m_eff, q_len, t_len, B, W,
+                           n_steps, mode, dash_free, match, mismatch, gap,
+                           scratch, out, use_smem, par, stream);
 }

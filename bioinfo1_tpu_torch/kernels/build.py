@@ -1,8 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Every ``bioinfo1_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-``build/torch_kernels/libbioinfo1_torch_kernels.so``, and bound with
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
+``build/torch_kernels/libbioinfo1_torch_kernels.so``, bound with
 ``ctypes``: pointers are ``c_void_p`` (``tensor.data_ptr()``), the stream is
 ``torch.cuda.current_stream().cuda_stream``.  The build runs at first use
 and again whenever a source's hash changes (the hash is stamped beside the
@@ -31,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libbioinfo1_torch_kernels.so")
 NVCC_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types (all return int = cudaError_t).
@@ -42,6 +43,13 @@ _SIGNATURES = {
     # dash_free, match, mismatch, gap, scratch, out, use_smem, stream
     "bioinfo1_band_score": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _I, _P],
+    # as bioinfo1_band_score, with parents before the stream
+    "bioinfo1_band_parents": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+    # parents, S4, B, W, goal_i, goal_j, score, q, qn, t, tm, mode, match,
+    # mismatch, gap, out, stream
+    "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
+                              _I, _I, _I, _I, _P, _P],
     # q, n, t, m, q_len, t_len, B, mode, match, mismatch, gap, scratch,
     # out, use_smem, stream
     "bioinfo1_full_score": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
@@ -94,15 +102,36 @@ def ensure_built() -> float:
                 return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR,
+                           f"{os.path.basename(src)}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{obj} (rc {proc.returncode}):\n{err[-4000:]}")
+    objs = [obj for _cmd, obj, _proc in jobs]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (rc {proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(NVCC_LOG, "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        fh.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as fh:
         fh.write(want)
@@ -126,13 +155,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(wrapper, name: str, *args) -> None:
+def launch(wrapper, name: str, *args, counter: str = "launches") -> None:
     """Call C entry point ``name``; raise on a CUDA error, else count one
-    launch on ``wrapper.launches``."""
+    launch on ``wrapper.<counter>`` (``launches`` unless the wrapper serves
+    two kernels)."""
     lib = library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.bioinfo1_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     with _lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)

@@ -18,6 +18,7 @@ Python loop over anti-diagonals in place of the JAX ``lax.scan``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -33,11 +34,14 @@ _DASH = 45            # ord('-')
 
 @dataclasses.dataclass
 class AlignOut:
-    """score, goal_i, goal_j: (B,) int32 (the traceback start cell)."""
+    """score, goal_i, goal_j: (B,) int32 (the traceback start cell);
+    parents: the banded traceback parents when asked for (ops/band.py),
+    else None."""
 
     score: torch.Tensor
     goal_i: torch.Tensor
     goal_j: torch.Tensor
+    parents: Optional[torch.Tensor] = None
 
 
 def align_scores_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,

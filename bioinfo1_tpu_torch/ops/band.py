@@ -1,4 +1,4 @@
-"""Banded alignment score with exactness certificate (port of bioinfo1_tpu/ops/pallas_band.py, want_parents=False).
+"""Banded alignment score, traceback parents and exactness certificate (port of bioinfo1_tpu/ops/pallas_band.py).
 
 Coordinates: anti-diagonal d = i + j; lane l of the W-lane band holds the
 diagonal offset o = 2l - W + (d & 1), i.e. i = (d + W) // 2 - l and
@@ -9,11 +9,21 @@ bit for bit: W = band rounded up to 128, n_pad = round_up(max(n, 128), 128),
 m_eff = round_up(max(min(m, n + W), 128), 128), the target length clamped
 to m_eff, and the sweep stopped at min(q_len + t_len, n_steps + 1).
 
-``align_scores_banded`` is the wrapper of kernel K2 (csrc/band_score.cu):
-CUDA tensors launch the kernel, CPU tensors take
-``align_scores_banded_plain``.  ``certify`` is plain tensor code on either
-device, as in the JAX package.  The port rounds every band to 128 lanes
-on both devices (the JAX CPU path rounds its realign band to 16).
+``want_parents`` adds the traceback parents in the Pallas kernel's layout:
+(steps_pad // 4, B, W) uint8 with steps_pad = round_up(n_steps, 128); the
+2-bit parent (0 M, 1 I, 2 D; M > I > D, first set, strictly greater,
+chosen before the local clamp and the border masks) of step idx = d - 2
+sits at row idx >> 2, bit 2 * (idx & 3), lane l.  Bits past a read's last
+diagonal are 0; rows past it hold whatever the buffer held (the walk never
+reads them).  Unlike the JAX wrapper, B is not padded to 128.
+
+``align_scores_banded`` is the wrapper of kernels K2 (score only) and K4
+(with parents), both in csrc/band_score.cu: CUDA tensors launch a kernel
+(counted on ``align_scores_banded.launches`` and ``.parent_launches``),
+CPU tensors take ``align_scores_banded_plain``.  ``certify`` is plain
+tensor code on either device, as in the JAX package.  The port rounds
+every band to 128 lanes on both devices (the JAX CPU path rounds its
+realign band to 16).
 """
 
 from __future__ import annotations
@@ -43,12 +53,20 @@ def band_shapes(n: int, m: int, band: int):
     return W, n_pad, m_eff, n_steps
 
 
+def parent_rows(n_steps: int) -> int:
+    """Byte rows of the parent tensor: 4 steps per byte, the steps padded
+    to a multiple of 128 (the Pallas kernel's flush chunk)."""
+    return _round_up(n_steps, 128) // 4
+
+
 def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
                               t_bytes: torch.Tensor, t_lens: torch.Tensor,
                               match: int, mismatch: int, gap: int,
                               band: int = 256, mode: int = 0,
-                              dash_free: bool = False) -> AlignOut:
-    """Plain PyTorch banded scores (a Python loop over anti-diagonals)."""
+                              dash_free: bool = False,
+                              want_parents: bool = False) -> AlignOut:
+    """Plain PyTorch banded scores, and parents with ``want_parents`` (a
+    Python loop over anti-diagonals)."""
     B, n = q_bytes.shape
     m = t_bytes.shape[1]
     dev = q_bytes.device
@@ -88,6 +106,11 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
     if mode == 0:
         for b, dg in enumerate((ql + tl).tolist()):
             goal_rows.setdefault(dg, []).append(b)
+    parents = None
+    if want_parents:
+        parents = torch.zeros((parent_rows(n_steps), B, W), dtype=torch.uint8,
+                              device=dev)
+        d_last = (ql + tl).clamp(max=n_steps + 1)[:, None]
     for d in range(2, d_stop + 1):
         p = d & 1
         i0 = (d + W) // 2
@@ -104,7 +127,22 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
             up = torch.cat([h1[:, 1:], neg_col], dim=1)
             left = h1
         diag_v = h2 + torch.where(qb == tb, match, mismatch)
-        if dash_free:
+        if want_parents:
+            gap_l = gap if dash_free else torch.where(tb == _DASH, 0, gap)
+            gap_u = gap if dash_free else torch.where(qb == _DASH, 0, gap)
+            left_v = left + gap_l
+            up_v = up + gap_u
+            h = torch.maximum(diag_v, left_v)
+            par = (left_v > diag_v).long()
+            take_d = up_v > h
+            h = torch.where(take_d, up_v, h)
+            par = torch.where(take_d, 2, par)
+            idx = d - 2
+            par = torch.where(d <= d_last, par << (2 * (idx & 3)), 0)
+            acc = par if idx & 3 == 0 else acc | par
+            if idx & 3 == 3 or d == d_stop:
+                parents[idx >> 2] = acc.to(torch.uint8)
+        elif dash_free:
             h = torch.maximum(diag_v, torch.maximum(left, up) + gap)
         else:
             left_v = left + torch.where(tb == _DASH, 0, gap)
@@ -163,43 +201,81 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
         row_wins = rc > cc
         out = (torch.where(row_wins, rc, cc), torch.where(row_wins, ql, ci),
                torch.where(row_wins, rj, tl))
-    return AlignOut(*(x.to(torch.int32) for x in out))
+    return AlignOut(*(x.to(torch.int32) for x in out), parents=parents)
 
 
 def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
                         t_bytes: torch.Tensor, t_lens: torch.Tensor,
                         match: int, mismatch: int, gap: int,
                         band: int = 256, mode: int = 0,
-                        dash_free: bool = False) -> AlignOut:
-    """Banded scores for all three modes: kernel K2 on CUDA tensors, the
+                        dash_free: bool = False,
+                        want_parents: bool = False) -> AlignOut:
+    """Banded scores for all three modes, and with ``want_parents`` the
+    traceback parents: kernel K2 (K4 with parents) on CUDA tensors, the
     plain version on CPU tensors.  Exact iff ``certify`` (else a lower
-    bound of the in-band optimum).  ``dash_free`` drops the literal-'-'
-    free-gap rule; callers set it only when no input byte is '-'."""
+    bound of the in-band optimum); only reads passing
+    ``certify(strict=True)`` may trust the parents.  ``dash_free`` drops
+    the literal-'-' free-gap rule; callers set it only when no input byte
+    is '-'."""
     if q_bytes.device.type == "cpu":
         return align_scores_banded_plain(q_bytes, q_lens, t_bytes, t_lens,
                                          match, mismatch, gap, band, mode,
-                                         dash_free)
+                                         dash_free, want_parents)
     _check_pair("align_scores_banded", q_bytes, q_lens, t_bytes, t_lens)
     B, n = q_bytes.shape
     m = t_bytes.shape[1]
     W, n_pad, m_eff, n_steps = band_shapes(n, m, band)
-    out = torch.empty((3, B), dtype=torch.int32, device=q_bytes.device)
+    dev = q_bytes.device
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    parents = (torch.empty((parent_rows(n_steps), B, W), dtype=torch.uint8,
+                           device=dev) if want_parents else None)
     if B:
-        use_smem = 12 * W <= build.SMEM_LIMIT
+        # Per-read state: three int32 diagonals, plus K4's W accumulator
+        # bytes (csrc/band_score.cu state_ints).
+        state_ints = 3 * W + (W // 4 if want_parents else 0)
+        use_smem = 4 * state_ints <= build.SMEM_LIMIT
         scratch = (None if use_smem else torch.empty(
-            (B, 3, W), dtype=torch.int32, device=q_bytes.device))
-        build.launch(
-            align_scores_banded, "bioinfo1_band_score",
-            q_bytes.data_ptr(), n, n_pad, t_bytes.data_ptr(), m, m_eff,
-            q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,
-            int(dash_free), match, mismatch, gap,
-            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            int(use_smem),
-            torch.cuda.current_stream(q_bytes.device).cuda_stream)
-    return AlignOut(*out.unbind(0))
+            (B, state_ints), dtype=torch.int32, device=dev))
+        args = [q_bytes.data_ptr(), n, n_pad, t_bytes.data_ptr(), m, m_eff,
+                q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,
+                int(dash_free), match, mismatch, gap,
+                0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                int(use_smem)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if want_parents:
+            build.launch(align_scores_banded, "bioinfo1_band_parents", *args,
+                         parents.data_ptr(), stream,
+                         counter="parent_launches")
+        else:
+            build.launch(align_scores_banded, "bioinfo1_band_score", *args,
+                         stream)
+    return AlignOut(*out.unbind(0), parents=parents)
 
 
-align_scores_banded.launches = 0
+align_scores_banded.launches = 0          # K2
+align_scores_banded.parent_launches = 0   # K4
+
+
+def parent_cells(parents: torch.Tensor, q_lens: torch.Tensor,
+                 t_lens: torch.Tensor, m_eff: int) -> torch.Tensor:
+    """(4 * S4, B, W) uint8: the 2-bit parent of every in-band cell with
+    1 <= i <= q_len and 1 <= j <= min(t_len, m_eff), 255 elsewhere - the
+    cells a parents tensor is defined on (what the walk of a certified read
+    can read), for comparing two of them."""
+    S4, B, W = parents.shape
+    dev = parents.device
+    d = torch.arange(2, 4 * S4 + 2, device=dev, dtype=torch.int32)[:, None,
+                                                                      None]
+    lanes = torch.arange(W, device=dev, dtype=torch.int32)[None, None, :]
+    i = (d + W) // 2 - lanes
+    j = d - i
+    ql = q_lens.to(torch.int32)[None, :, None]
+    tl = t_lens.to(torch.int32).clamp(max=m_eff)[None, :, None]
+    inside = (i >= 1) & (i <= ql) & (j >= 1) & (j <= tl)
+    shifts = (2 * torch.arange(4, device=dev, dtype=torch.uint8))
+    bits = (parents[:, None] >> shifts[None, :, None, None]) & 3
+    bits = bits.reshape(4 * S4, B, W)
+    return torch.where(inside, bits, torch.full_like(bits, 255))
 
 
 def certify(score: torch.Tensor, q_bytes: torch.Tensor, q_lens: torch.Tensor,

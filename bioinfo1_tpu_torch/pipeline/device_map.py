@@ -1,11 +1,17 @@
-"""Fused score-only map step on the device (port of bioinfo1_tpu/pipeline/device_map.py:31-523).
+"""Fused map steps on the device (port of bioinfo1_tpu/pipeline/device_map.py).
 
 Reads in, mapping coordinates and scores out, with no host round trip
 between the stages: minimizer sweep -> compaction -> fwd/rev lookup in the
 combined index -> LIS chain (kernel K1, both strands in one launch) ->
-strand select -> region gather -> banded score (kernel K2) + certificate,
-or the full-matrix score (kernel K3) when the band is 0.  On CPU tensors
-every kernel wrapper takes its plain PyTorch version.
+strand select -> region gather, then
+
+  * ``map_step`` (score only): banded score (kernel K2) + certificate, or
+    the full-matrix score (kernel K3) when the band is 0;
+  * ``map_step_cigar`` (-c): banded score + parents (kernel K4), the strict
+    certificate, and the traceback walk (kernel K5); only the packed op
+    codes leave the device.
+
+On CPU tensors every kernel wrapper takes its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from bioinfo1_tpu_torch.ops import band as bd
 from bioinfo1_tpu_torch.ops import chain as chain_ops
 from bioinfo1_tpu_torch.ops import match as match_ops
 from bioinfo1_tpu_torch.ops import minimizer as mz
+from bioinfo1_tpu_torch.ops import trace as tr
 
 
 @dataclasses.dataclass
@@ -345,3 +352,65 @@ def map_step(reads: torch.Tensor, lens: torch.Tensor, index: DeviceIndex,
     return MapOut(mapped=mapped & ~overflow, is_fwd=use_fwd,
                   q_begin=q_begin, q_end=q_end, t_begin=t_begin, t_end=t_end,
                   score=score, overflow=overflow, need=need, inexact=inexact)
+
+
+@dataclasses.dataclass
+class CigarOut:
+    """map_step_cigar output: MapOut plus the traceback walk.
+
+    codes: (S4 + 1, B) uint8 op codes packed 4 per byte in goal -> origin
+    order (ops/trace.py); goal_i / goal_j: the walk's start cells; q_len /
+    t_len: the alignment-region lengths (the decoder's semiGlobal corner
+    pad needs them); certified: the strict certificate - the CIGAR is the
+    full DP's; the host realigns the other mapped reads."""
+
+    base: MapOut
+    codes: torch.Tensor
+    goal_i: torch.Tensor
+    goal_j: torch.Tensor
+    q_len: torch.Tensor
+    t_len: torch.Tensor
+    certified: torch.Tensor
+
+    def to_numpy(self) -> "CigarOut":
+        """All fields as numpy arrays (three device-to-host copies)."""
+        host = torch.stack([self.goal_i, self.goal_j, self.q_len, self.t_len,
+                            self.certified.to(torch.int32)]).cpu().numpy()
+        return CigarOut(base=self.base.to_numpy(),
+                        codes=self.codes.cpu().numpy(), goal_i=host[0],
+                        goal_j=host[1], q_len=host[2], t_len=host[3],
+                        certified=host[4].astype(bool))
+
+
+def map_step_cigar(reads: torch.Tensor, lens: torch.Tensor,
+                   index: DeviceIndex, match: int, mismatch: int, gap: int,
+                   *, k: int, w: int, mode: int, budget: int = 512,
+                   region_cap: int = 0, oob_end_windows: bool = False,
+                   band: int = 256, dash_free: bool = False) -> CigarOut:
+    """The fused -c step: ``map_step``'s front half, then the banded score
+    with parents (kernel K4) at ``band``, the strict certificate, and the
+    traceback walk (kernel K5), in all three modes.  Local and semiGlobal
+    goal cells come from the band's in-band argmax / rim tracking; their
+    exactness is the mode-aware certificate's (ops/band.certify).
+    ``base.inexact`` is all false: uncertified reads show in
+    ``certified``."""
+    if region_cap == 0:
+        region_cap = reads.shape[1]
+    (mapped, use_fwd, q_begin, q_end, t_begin, t_end, overflow,
+     q_win, t_win, q_len, t_len, need) = _map_core(
+        reads, lens, index, k=k, w=w, budget=budget, region_cap=region_cap,
+        oob_end_windows=oob_end_windows)
+    out = bd.align_scores_banded(q_win, q_len, t_win, t_len, match, mismatch,
+                                 gap, band=band, mode=mode,
+                                 dash_free=dash_free, want_parents=True)
+    certified = bd.certify(out.score, q_win, q_len, t_win, t_len, match,
+                           mismatch, gap, band, strict=True, mode=mode)
+    codes = tr.walk_parents(out.parents, out.goal_i, out.goal_j, out.score,
+                            q_win, t_win, match, mismatch, gap, mode)
+    base = MapOut(mapped=mapped & ~overflow, is_fwd=use_fwd,
+                  q_begin=q_begin, q_end=q_end, t_begin=t_begin, t_end=t_end,
+                  score=out.score, overflow=overflow, need=need,
+                  inexact=torch.zeros_like(mapped))
+    return CigarOut(base=base, codes=codes, goal_i=out.goal_i,
+                    goal_j=out.goal_j, q_len=q_len, t_len=t_len,
+                    certified=certified)

@@ -1,9 +1,14 @@
-"""End-to-end batched read mapping, score-only (port of bioinfo1_tpu/pipeline/mapper.py).
+"""End-to-end batched read mapping (port of bioinfo1_tpu/pipeline/mapper.py).
 
 Read batches move through fixed-shape device stages (pipeline/device_map.py):
 
     pack -> map_step (minimize, match, chain, region gather, DP score)
          -> [realign pass for certificate misses] -> PAF rows (host)
+
+With ``-c`` the step is ``map_step_cigar`` (banded score + parents, strict
+certificate, traceback walk on the device); the host run-length encodes
+the packed op codes into the ``cg:Z:`` column, and certificate misses take
+the realign pass with parents and the walk.
 
 Shapes are controlled as in the JAX package: reads are length-bucketed on
 the 1.5-step ladder, per-read match budgets start at ~3L/8 and overflowing
@@ -11,8 +16,10 @@ reads retry at a budget covering their exact need (bucket boosts combine
 with per-read multipliers by max, and decay when a clean batch needs less
 than half).  Output order is input order.
 
-Not ported in this slice, and refused rather than ignored: ``-c`` CIGARs,
-FASTA match nesting (``--bug-compat`` on a FASTA reads file) and more than
+Not ported yet, and refused rather than ignored: FASTA match nesting
+(``--bug-compat`` on a FASTA reads file), ``-c`` where no exactness
+certificate exists (global mode with gap >= 0, local or semiGlobal with
+gap > 0: the JAX package runs those on its staged host path) and more than
 one device.  Reads the JAX package hands to its staged host path
 (``_map_bucket``: after two fused attempts, or on a realign certificate
 miss) raise ``NotImplementedError`` naming the read.  Unlike the JAX
@@ -36,10 +43,12 @@ import torch
 
 from bioinfo1_tpu import native
 from bioinfo1_tpu.index import builder
+from bioinfo1_tpu.utils import cigar as cg
 from bioinfo1_tpu.utils import stats as st
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
 from bioinfo1_tpu_torch.ops import minimizer as mz
+from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
 from bioinfo1_tpu_torch.utils.runtime import resolve_device
 
@@ -55,11 +64,12 @@ class MapperConfig:
     k: int = 15
     w: int = 5
     f: float = 0.001
-    output_cigar: bool = False     # -c: refused until the CIGAR slice
-    # bug-compat switches (False = fixed semantics); the reference's
-    # local_target_begin_end only shapes CIGARs, so the port has no field
+    output_cigar: bool = False
+    sam_cigar: bool = False          # extension: emit SAM-convention CIGARs
+    # bug-compat switches (False = fixed semantics)
     banned_rev_from_fwd: bool = False
     fasta_match_nesting: bool = False
+    local_target_begin_end: bool = False
     threshold_from_rev_unique: bool = False
     exact_ties: bool = False
     oob_end_windows: bool = False
@@ -85,15 +95,17 @@ class MapperCounters:
     budget_retries: int = 0        # match-budget overflow reruns
     host_fallbacks: int = 0        # certificate misses re-routed to realign
     realign_batches: int = 0       # realign passes run
+    realign_chunks: int = 0        # their device dispatches (-c splits them)
     t_fused_s: float = 0.0         # fused step dispatch + fetch
     t_realign_s: float = 0.0       # realign passes
+    t_decode_s: float = 0.0        # native CIGAR decode
     t_format_s: float = 0.0        # stats + PAF serialization
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
         if self.cert_total:
             d["cert_hit_rate"] = round(self.cert_hits / self.cert_total, 4)
-        for k in ("t_fused_s", "t_realign_s", "t_format_s"):
+        for k in ("t_fused_s", "t_realign_s", "t_decode_s", "t_format_s"):
             d[k] = round(d[k], 3)
         return d
 
@@ -109,6 +121,13 @@ class ReadMapping:
     t_begin: int = 0          # in strand coordinates (RC coords for rev)
     t_end: int = 0            # inclusive
     score: int = 0
+    cigar: Optional[str] = None
+    target_begin: Optional[int] = None
+
+
+# Ceiling on one dispatch's parent tensor (the -c path's largest device
+# buffer): the fused step sizes its band by it, the realign pass its chunks.
+_PARENT_BYTES = 4e9
 
 
 def _pow2_at_least(x: int, floor: int = 8) -> int:
@@ -169,33 +188,64 @@ def _bucket_indices(lengths: Sequence[int], growth: float,
 
 
 def _needed_band_arr(ql, tl, score, match: int, mismatch: int, gap: int,
-                     mode: int):
-    """Per-read minimal band W certifying the banded score, solved from
-    ops/band.certify's non-strict bounds (ties are fine when only the score
-    is emitted).  None when no finite band certifies (global with
+                     mode: int, strict: bool):
+    """Per-read minimal band W certifying the banded result, solved from
+    ops/band.certify's bounds (``strict`` adds the one-point margin the
+    traceback guarantee needs; ties are fine when only the score is
+    emitted).  None when no finite band certifies (global with
     gap >= 0)."""
     maxsub = max(match, mismatch, 0)
     diff = tl - ql
+    eps = 1 if strict else 0
     if mode == 0:
         if gap >= 0:
             return None
-        need2 = (-(-(maxsub * np.minimum(ql, tl) - score) // (-gap))
+        need2 = (-(-(maxsub * np.minimum(ql, tl) - score + eps) // (-gap))
                  + np.abs(diff))
         # certify's goal_in_band term also needs W >= |tl-ql| + 2.
         return np.maximum(need2 // 2 + 2, np.abs(diff) + 2)
     if maxsub <= 0:
         return np.zeros_like(ql)
-    F = score // maxsub
+    F = (score - eps) // maxsub
     w1 = np.where(ql <= F, 0, tl + 1 - F)
     w2 = np.where(tl <= F, 0, ql + 1 - F)
     return np.maximum(np.maximum(w1, w2), 0)
 
 
+def _decode_cigars(packed_codes, idxs, goal_i, goal_j, q_len, t_len,
+                   cfg: MapperConfig):
+    """(cigars, target_begins) of the selected reads, decoded from the
+    packed walk codes by native/cigar.cpp; utils.cigar.cigar_from_codes on
+    the unpacked codes is its spec and the fallback."""
+    idxs = np.asarray(idxs, dtype=np.int32)
+    gi = np.asarray(goal_i)[idxs]
+    gj = np.asarray(goal_j)[idxs]
+    ql = np.asarray(q_len)[idxs]
+    tl = np.asarray(t_len)[idxs]
+    nat = native.cigar_rle_batch(
+        packed_codes, idxs, gi, gj, ql, tl, cfg.align_type,
+        sam_convention=cfg.sam_cigar,
+        local_target_begin_end=cfg.local_target_begin_end)
+    if nat is not None:
+        return nat
+    codes = tr.unpack_codes(packed_codes)
+    cigs, tbs = [], []
+    for loc, i in enumerate(idxs):
+        c, tb = cg.cigar_from_codes(
+            codes[:, i], cfg.align_type, int(gi[loc]), int(gj[loc]),
+            int(ql[loc]), int(tl[loc]), sam_convention=cfg.sam_cigar,
+            local_target_begin_end=cfg.local_target_begin_end)
+        cigs.append(c)
+        tbs.append(tb)
+    return cigs, tbs
+
+
 def paf_line(name: str, read_len: int, m: ReadMapping, ref_name: str,
-             ref_len: int) -> str:
+             ref_len: int, output_cigar: bool) -> str:
     """One PAF row (team_mapper.cpp:685-698): 12 tab columns, DP score in
-    the residue-matches column, literal mapq 60; rev-strand target coords
-    flipped back to forward."""
+    the residue-matches column, literal mapq 60, and with ``output_cigar``
+    a ``cg:Z:`` column; rev-strand target coords flipped back to
+    forward."""
     if m.is_fwd:
         t_start_out, t_end_out = m.t_begin, m.t_end + 1
     else:
@@ -207,14 +257,23 @@ def paf_line(name: str, read_len: int, m: ReadMapping, ref_name: str,
         str(t_start_out), str(t_end_out),
         str(m.score), str(m.q_end - m.q_begin + 1), "60",
     ]
+    if output_cigar:
+        fields.append(f"cg:Z:{m.cigar}")
     return "\t".join(fields)
+
+
+def certificate_possible(cfg: MapperConfig) -> bool:
+    """Whether banded results can be certified exact: gap < 0 in global
+    mode, gap <= 0 in local and semiGlobal mode (ops/band.certify)."""
+    return cfg.gap < 0 if cfg.align_type == "global" else cfg.gap <= 0
 
 
 def unported_features(cfg: MapperConfig) -> List[str]:
     """The configuration's features this port does not run yet."""
     out = []
-    if cfg.output_cigar:
-        out.append("-c (CIGAR output)")
+    if cfg.output_cigar and not certificate_possible(cfg):
+        out.append(f"-c with -a {cfg.align_type} -g {cfg.gap} (no exactness "
+                   "certificate: the staged host path)")
     if cfg.fasta_match_nesting:
         out.append("--bug-compat FASTA match nesting")
     if cfg.devices > 1:
@@ -255,11 +314,10 @@ class Mapper:
                 oob_end_windows=cfg.oob_end_windows)
         self.ref_len = len(reference)
         self._mode = al.MODE_BY_NAME[cfg.align_type]
-        # Certificates need gap < 0 (global) / gap <= 0 (local, semi).
-        # Without one a banded pass could never certify, so such configs
-        # take the full-matrix score from their first batch on.
-        self._cert_possible = (cfg.gap < 0) if self._mode == 0 \
-            else (cfg.gap <= 0)
+        # Without a certificate a banded pass could never certify, so such
+        # score-only configs take the full-matrix score from their first
+        # batch on.
+        self._cert_possible = certificate_possible(cfg)
         # One genome scan enabling the kernels' dash-free specialization
         # (the literal-'-' free-gap rule); sticky-false once a batch holds
         # a '-' so a stream never alternates variants.
@@ -337,13 +395,24 @@ class Mapper:
             pass    # perf-only state: a read-only temp dir costs nothing
 
     def _bucket_band(self, cap: int, for_cigar: bool = False) -> int:
-        """Current band for a length bucket (adaptive; _adapt_band_score)."""
+        """Current band for a length bucket (adaptive: _adapt_band_score,
+        and the -c persistence in _map_bucket_fused).  -c always bands."""
         key = (cap, for_cigar)
         b = self._band_by_key.get(key)
         if b is None:
-            b = 256 if (cap > 512 and self._cert_possible) else 0
+            b = 256 if (for_cigar or (cap > 512 and self._cert_possible)) \
+                else 0
             self._band_by_key[key] = b
         return b
+
+    def _max_fused_band(self, cap: int, batch: int) -> int:
+        """Band ceiling of the fused -c step: its parent tensor is
+        ~(3*cap/4)*batch*W bytes (4 steps per byte); keep it under
+        _PARENT_BYTES and never wider than the whole-matrix threshold
+        (W >= region_cap + 2)."""
+        mem_cap = int(_PARENT_BYTES // max(3 * cap * batch // 4, 1))
+        return min(_region_cap(cap) + 128,
+                   max(256, (mem_cap // 128) * 128))
 
     def _adapt_band_score(self, cap: int, out: dm.MapOut,
                           n_real: int) -> None:
@@ -368,7 +437,7 @@ class Mapper:
         if not n_mapped:
             return
         w_need_arr = _needed_band_arr(ql, tl, score, cfg.match, cfg.mismatch,
-                                      cfg.gap, mode)
+                                      cfg.gap, mode, strict=False)
         whole = (ql <= W) & (tl <= W - 2)
         cert = whole | (w_need_arr <= W)
         w_need_arr = np.where(mapped, w_need_arr, 0)
@@ -387,13 +456,17 @@ class Mapper:
 
     def _realign_bucket(self, seqs: Sequence[str], hints: dict,
                         ) -> Tuple[List[ReadMapping], List[int]]:
-        """Certificate misses: re-run only the banded score at the band each
-        read's own fused score (an exact lower bound) proves certifiable,
-        reusing the exact chain coordinates from the failed pass.  One
-        dispatch covers every missed read across length buckets.  Returns
-        (results, locs that still missed)."""
+        """Certificate misses: re-run only the banded alignment at the band
+        each read's own fused score (an exact lower bound) proves
+        certifiable, reusing the exact chain coordinates from the failed
+        pass; under -c with parents, the strict certificate and the walk.
+        One pass covers every missed read across length buckets; under -c
+        it is dispatched in row chunks whose parent tensor stays under
+        _PARENT_BYTES (each read's result does not depend on its chunk).
+        Returns (results, locs that still missed)."""
         cfg = self.cfg
         mode = self._mode
+        want_cigar = cfg.output_cigar
         qs, ts = [], []
         for i in range(len(seqs)):
             _, qb, qe, tb, te, fwd, _ = hints[i]
@@ -411,21 +484,56 @@ class Mapper:
                                256), -(-w_whole // 128) * 128)
         dash_free = bool(self._dash_free_sticky and self._ref_dash_free
                          and not (qa == 45).any() and not (ta == 45).any())
-        q_d, ql_d, t_d, tl_d = self._to_device(qa, ql, ta, tl)
-        out = bd.align_scores_banded(q_d, ql_d, t_d, tl_d, cfg.match,
-                                     cfg.mismatch, cfg.gap, band=W,
-                                     mode=mode, dash_free=dash_free)
-        # Non-strict: ties are fine when only the score is emitted.
-        cert_d = bd.certify(out.score, q_d, ql_d, t_d, tl_d, cfg.match,
-                            cfg.mismatch, cfg.gap, W, mode=mode)
-        host = torch.stack([cert_d.to(torch.int32), out.score]).cpu().numpy()
-        cert, scores = host[0].astype(bool), host[1]
+        q_all, ql_all, t_all, tl_all = self._to_device(qa, ql, ta, tl)
         n_reads = len(seqs)
+        size = n_reads
+        if want_cigar:
+            n_steps = bd.band_shapes(qa.shape[1], ta.shape[1], W)[3]
+            size = max(1, int(_PARENT_BYTES
+                              // (bd.parent_rows(n_steps) * W)))
+        cert = np.zeros(n_reads, bool)
+        scores = np.zeros(n_reads, np.int64)
+        cig_by_i: dict = {}
+        n_chunks = 0
+        for lo in range(0, n_reads, size):
+            hi = min(lo + size, n_reads)
+            q_d, ql_d, t_d, tl_d = (x[lo:hi] for x in
+                                    (q_all, ql_all, t_all, tl_all))
+            out = bd.align_scores_banded(
+                q_d, ql_d, t_d, tl_d, cfg.match, cfg.mismatch, cfg.gap,
+                band=W, mode=mode, dash_free=dash_free,
+                want_parents=want_cigar)
+            # Non-strict for score-only callers: ties are fine when only
+            # the score is emitted.
+            cert_d = bd.certify(out.score, q_d, ql_d, t_d, tl_d, cfg.match,
+                                cfg.mismatch, cfg.gap, W, strict=want_cigar,
+                                mode=mode)
+            host = torch.stack([cert_d.to(torch.int32), out.score,
+                                out.goal_i, out.goal_j]).cpu().numpy()
+            cert[lo:hi] = host[0].astype(bool)
+            scores[lo:hi] = host[1]
+            if want_cigar:
+                packed = tr.walk_parents(
+                    out.parents, out.goal_i, out.goal_j, out.score, q_d, t_d,
+                    cfg.match, cfg.mismatch, cfg.gap, mode).cpu().numpy()
+                del out     # frees the parents before the next chunk
+                sel = [i for i in range(hi - lo) if cert[lo + i]]
+                if sel:
+                    t_dec = time.perf_counter()
+                    cigs, tbs = _decode_cigars(packed, sel, host[2], host[3],
+                                               ql[lo:hi], tl[lo:hi], cfg)
+                    cig_by_i.update((lo + i, pair)
+                                    for i, pair in zip(sel, zip(cigs, tbs)))
+                    with self._counters_lock:
+                        self.counters.t_decode_s += (time.perf_counter()
+                                                     - t_dec)
+            n_chunks += 1
         with self._counters_lock:
             self.counters.cert_total += n_reads
-            self.counters.cert_hits += int(cert[:n_reads].sum())
+            self.counters.cert_hits += int(cert.sum())
             self.counters.batches += 1
             self.counters.realign_batches += 1
+            self.counters.realign_chunks += n_chunks
         results: List[ReadMapping] = []
         missed: List[int] = []
         for i in range(n_reads):
@@ -434,17 +542,20 @@ class Mapper:
                 results.append(ReadMapping(mapped=False))
                 missed.append(i)
                 continue
+            cigar, target_begin = cig_by_i.get(i, (None, None))
             results.append(ReadMapping(
                 mapped=True, is_fwd=bool(fwd), q_begin=qb, q_end=qe,
-                t_begin=tb, t_end=te, score=int(scores[i])))
+                t_begin=tb, t_end=te, score=int(scores[i]), cigar=cigar,
+                target_begin=target_begin))
         return results, missed
 
     def _map_bucket_fused(self, seqs: Sequence[str], budget: int):
-        """One fused device batch.  Returns (results, budget_retry,
-        realign, realign_hint, need): budget_retry reads overflowed;
-        realign reads missed the banded certificate and realign_hint maps
-        each to (certifying band, chain coordinates, score); need holds the
-        exact per-read match totals (key -1: the batch maximum)."""
+        """One fused device batch (``map_step``, or ``map_step_cigar``
+        under -c).  Returns (results, budget_retry, realign, realign_hint,
+        need): budget_retry reads overflowed; realign reads missed the
+        banded certificate and realign_hint maps each to (certifying band,
+        chain coordinates, score); need holds the exact per-read match
+        totals (key -1: the batch maximum)."""
         cfg = self.cfg
         floor = cfg.k + cfg.w - 1
         arr, lens = _pack_reads(seqs, floor, len_to=_bucket_cap(
@@ -456,14 +567,60 @@ class Mapper:
                          and not (arr == 45).any())
         if not dash_free:
             self._dash_free_sticky = False
-        band = self._bucket_band(cap, False)
         reads_d, lens_d = self._to_device(arr, lens)
-        out = dm.map_step(
-            reads_d, lens_d, self.device_index(), cfg.match, cfg.mismatch,
-            cfg.gap, k=cfg.k, w=cfg.w, mode=mode, budget=budget,
-            region_cap=region_cap, oob_end_windows=cfg.oob_end_windows,
-            band=band, dash_free=dash_free).to_numpy()
-        self._adapt_band_score(cap, out, len(seqs))
+        kw = dict(k=cfg.k, w=cfg.w, mode=mode, budget=budget,
+                  region_cap=region_cap, oob_end_windows=cfg.oob_end_windows,
+                  dash_free=dash_free)
+        n_real = len(seqs)
+        cig = None
+        cig_by_i: dict = {}
+        if cfg.output_cigar:
+            # The parent tensor's ceiling also clamps a band persisted under
+            # a smaller batch.
+            max_band = self._max_fused_band(cap, arr.shape[0])
+            band = min(self._bucket_band(cap, True), max_band)
+            cig = dm.map_step_cigar(
+                reads_d, lens_d, self.device_index(), cfg.match,
+                cfg.mismatch, cfg.gap, band=band, **kw).to_numpy()
+            out = cig.base
+            mapped = out.mapped[:n_real]
+            if mapped.any():
+                # Persist the band for future batches: the largest needed
+                # band, capped at 2x the 99th percentile so one outlier
+                # does not widen every later batch's parent stream (it
+                # pays the realign pass instead).
+                need = _needed_band_arr(
+                    cig.q_len[:n_real], cig.t_len[:n_real],
+                    out.score[:n_real], cfg.match, cfg.mismatch, cfg.gap,
+                    mode, strict=True)
+                if need is None:
+                    persist = band
+                else:
+                    w99 = float(np.percentile(need[mapped], 99))
+                    w100 = float(need[mapped].max())
+                    persist = -(-int(max(min(w100, 2 * w99), 256))
+                                // 128) * 128
+                self._band_by_key[(cap, True)] = min(max(persist, 256),
+                                                     max_band)
+            certified = cig.certified[:n_real]
+            with self._counters_lock:
+                self.counters.cert_total += int(mapped.sum())
+                self.counters.cert_hits += int((mapped & certified).sum())
+            sel = np.flatnonzero(mapped & certified)
+            if len(sel):
+                t_dec = time.perf_counter()
+                cigs, tbs = _decode_cigars(cig.codes, sel, cig.goal_i,
+                                           cig.goal_j, cig.q_len, cig.t_len,
+                                           cfg)
+                cig_by_i = dict(zip(sel.tolist(), zip(cigs, tbs)))
+                with self._counters_lock:
+                    self.counters.t_decode_s += time.perf_counter() - t_dec
+        else:
+            band = self._bucket_band(cap, False)
+            out = dm.map_step(
+                reads_d, lens_d, self.device_index(), cfg.match,
+                cfg.mismatch, cfg.gap, band=band, **kw).to_numpy()
+            self._adapt_band_score(cap, out, n_real)
         results: List[ReadMapping] = []
         retry: List[int] = []
         retry_need: dict = {}
@@ -471,13 +628,27 @@ class Mapper:
         hint: dict = {}
         with self._counters_lock:
             self.counters.batches += 1
-        for i in range(len(seqs)):
+        for i in range(n_real):
             if out.overflow[i]:
                 results.append(ReadMapping(mapped=False))
                 retry.append(i)
                 retry_need[i] = int(out.need[i])
             elif not out.mapped[i]:
                 results.append(ReadMapping(mapped=False))
+            elif cig is not None and not cig.certified[i]:
+                # The strict certificate missed: the realign pass runs the
+                # read at the band its banded score (a lower bound) proves.
+                results.append(ReadMapping(mapped=False))
+                realign.append(i)
+                need = _needed_band_arr(
+                    np.int64(cig.q_len[i]), np.int64(cig.t_len[i]),
+                    np.int64(out.score[i]), cfg.match, cfg.mismatch,
+                    cfg.gap, mode, strict=True)
+                if need is not None:
+                    hint[i] = (int(need), int(out.q_begin[i]),
+                               int(out.q_end[i]), int(out.t_begin[i]),
+                               int(out.t_end[i]), bool(out.is_fwd[i]),
+                               int(out.score[i]))
             elif out.inexact[i]:
                 # The banded score is a lower bound; the realign pass runs
                 # the read at the band that bound proves.
@@ -488,19 +659,21 @@ class Mapper:
                            region_cap)
                 need = _needed_band_arr(
                     np.int64(ql_i), np.int64(tl_i), np.int64(out.score[i]),
-                    cfg.match, cfg.mismatch, cfg.gap, mode)
+                    cfg.match, cfg.mismatch, cfg.gap, mode, strict=False)
                 if need is not None:
                     hint[i] = (int(need), int(out.q_begin[i]),
                                int(out.q_end[i]), int(out.t_begin[i]),
                                int(out.t_end[i]), bool(out.is_fwd[i]),
                                int(out.score[i]))
             else:
+                cigar, target_begin = cig_by_i.get(i, (None, None))
                 results.append(ReadMapping(
                     mapped=True, is_fwd=bool(out.is_fwd[i]),
                     q_begin=int(out.q_begin[i]), q_end=int(out.q_end[i]),
                     t_begin=int(out.t_begin[i]), t_end=int(out.t_end[i]),
-                    score=int(out.score[i])))
-        retry_need[-1] = int(out.need[:len(seqs)].max())
+                    score=int(out.score[i]), cigar=cigar,
+                    target_begin=target_begin))
+        retry_need[-1] = int(out.need[:n_real].max())
         return results, retry, realign, hint, retry_need
 
     def map_batch(self, seqs: Sequence[str],
@@ -642,7 +815,7 @@ class Mapper:
         # fallback and executable spec.  One line per MAPPED read in order.
         nat = native.paf_format(
             [name for name, _ in chunk], [len(seq) for _, seq in chunk],
-            mappings, self.ref_name, self.ref_len, False)
+            mappings, self.ref_name, self.ref_len, cfg.output_cigar)
         if nat is not None:
             it = iter(nat)
             for bi, m in enumerate(mappings):
@@ -652,7 +825,8 @@ class Mapper:
             for bi, ((name, seq), m) in enumerate(zip(chunk, mappings)):
                 if m.mapped:
                     per_rec[bi].append(paf_line(
-                        name, len(seq), m, self.ref_name, self.ref_len))
+                        name, len(seq), m, self.ref_name, self.ref_len,
+                        cfg.output_cigar))
         return per_rec
 
     def _inflight_limit(self) -> int:
@@ -689,8 +863,14 @@ class Mapper:
 
         def _flush_cost(n_entries: int, cap: int) -> int:
             # ~320 B of transient workspace per padded base (match tables,
-            # region windows, DP state).
-            return _batch_cap(n_entries, 8) * cap * 320
+            # region windows, DP state), plus under -c the parent stream:
+            # ~(2*cap + W)/4 byte rows of W lanes per read, and the walk.
+            bpad = _batch_cap(n_entries, 8)
+            cost = bpad * cap * 320
+            if cfg.output_cigar:
+                W = self._bucket_band(cap, True)
+                cost += bpad * W * ((2 * cap + W) // 4 + 64)
+            return cost
 
         executor = ThreadPoolExecutor(max_workers=DEPTH)
         in_flight: list = []            # FIFO [(entries, chunk, fut, cost)]

@@ -5,8 +5,10 @@ with a 300-base deletion, so the realign pass runs) go through
 ``bioinfo1_tpu_torch.cli.main`` on the CPU and ``bioinfo1_tpu.cli.main``;
 stdout, or the -o file, must be identical.  Covers FASTA and FASTQ reads,
 global mode, -s, and -o with --resume (test_torch_cli_modes.py covers the
-local and semiGlobal modes and --bug-compat).  The flags this slice does
-not port must exit 1 with their message.
+local and semiGlobal modes and --bug-compat, test_torch_cli_cigar*.py the
+-c runs).  What the port does not run yet must exit 1 with its message:
+-c without an exactness certificate, FASTA match nesting, more than one
+device, a multi-process run.
 """
 
 import io
@@ -102,8 +104,8 @@ def test_cli_file_output_and_resume_match_jax(inputs):
 
 
 @pytest.mark.parametrize("flags,env,reads,needle", [
-    (["-c"], {}, "fq", "-c (CIGAR output"),
-    (["-c", "--sam-cigar"], {}, "fq", "-c (CIGAR output"),
+    (["-c", "-g", "1"], {}, "fq", "-c with -a global -g 1"),
+    (["-c", "-a", "local", "-g", "1"], {}, "fq", "-c with -a local -g 1"),
     (["--devices", "2"], {}, "fq", "--devices 2"),
     ([], {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"}, "fq", "multi-process"),
     (["--bug-compat"], {}, "fa", "FASTA match nesting"),

@@ -6,7 +6,11 @@ The same index (the JAX DeviceIndex's arrays, handed to the port with
 ``use_pallas=True`` under the Pallas TPU interpreter, at band 0 (full
 score) and 256 (banded score + certificate), in all three modes.  Every
 MapOut field must be equal.  The packed index itself must equal JAX's in
-both directory modes.
+both directory modes.  ``map_step_cigar`` (band 256, all three modes)
+against the JAX one the same two ways: equal MapOut fields, the same
+strict certificate as the Pallas route, and equal CIGARs on every read
+both certify (the lax route rounds its band to 16 lanes, so its
+certificate may differ).
 """
 
 import jax
@@ -16,6 +20,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from bioinfo1_tpu import native
 from bioinfo1_tpu.index import builder
 from bioinfo1_tpu.pipeline import device_map as jdm
 from bioinfo1_tpu.utils import simulate
@@ -100,3 +105,53 @@ def test_map_step_matches_jax(problem, mode, band):
         for f in FIELDS:
             np.testing.assert_array_equal(
                 getattr(got, f), np.asarray(getattr(want, f)), err_msg=f)
+
+
+def _cigars(out, mode, n):
+    """CIGARs of the first n reads decoded from a CigarOut's packed codes
+    (either walk's layout: the decoder skips code 3)."""
+    idx = np.arange(n, dtype=np.int32)
+    name = ("global", "local", "semiGlobal")[mode]
+    return native.cigar_rle_batch(
+        np.asarray(out.codes), idx, *(np.asarray(getattr(out, f))[:n] for f
+                                      in ("goal_i", "goal_j", "q_len",
+                                          "t_len")), name)[0]
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_map_step_cigar_matches_jax(problem, mode):
+    index, jidx, arr, lens = problem
+    kw = dict(k=K, w=W, mode=mode, budget=512, region_cap=1024, band=256)
+    scoring = (1, -1, -1)
+    tidx = tdm.device_index_from_numpy(_arrays(jidx), jidx.shift,
+                                       jidx.bsearch_steps, jidx.cnt_shift,
+                                       CPU)
+    got = tdm.map_step_cigar(torch.from_numpy(arr), torch.from_numpy(lens),
+                             tidx, *scoring, **kw).to_numpy()
+    n = len(lens)
+    mapped = got.base.mapped
+    assert mapped.sum() >= 8 and not got.base.inexact.any()
+    assert (mapped & ~got.certified).any()      # the deletion read misses
+    cig_got = _cigars(got, mode, n)
+    jscoring = tuple(jnp.int32(x) for x in scoring)
+    want_lax = jax.device_get(jdm.map_step_cigar(
+        jnp.asarray(arr), jnp.asarray(lens), jidx, *jscoring, **kw))
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = jax.device_get(jdm.map_step_cigar(
+            jnp.asarray(arr), jnp.asarray(lens), jidx, *jscoring,
+            use_pallas=True, **kw))
+    np.testing.assert_array_equal(got.certified,
+                                  np.asarray(want_pallas.certified))
+    for want in (want_lax, want_pallas):
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(got.base, f), np.asarray(getattr(want.base, f)),
+                err_msg=f)
+        for f in ("goal_i", "goal_j", "q_len", "t_len"):
+            np.testing.assert_array_equal(getattr(got, f),
+                                          np.asarray(getattr(want, f)))
+        both = mapped & got.certified & np.asarray(want.certified)
+        assert both.sum() >= mapped.sum() - 2
+        cig_want = _cigars(want, mode, n)
+        for b in np.flatnonzero(both):
+            assert cig_got[b] == cig_want[b], b

@@ -74,5 +74,5 @@ def test_kernel_sources_build_into_build_dir():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(os.path.basename(p) for p in build._sources())
     assert names == ["band_score.cu", "common.cuh", "full_score.cu",
-                     "lis_chain.cu"]
+                     "lis_chain.cu", "walk_parents.cu"]
     assert len(build.source_hash()) == 64

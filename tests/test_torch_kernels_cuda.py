@@ -7,7 +7,9 @@ sees no CUDA device.  On a machine with one, run
 
 (``--noconftest``: the repository's conftest configures JAX, which the
 port and this file do not need).  Comparisons are exact: integer outputs,
-tolerance 0.
+tolerance 0.  Banded parents are compared on the cells they are defined on
+(ops/band.parent_cells); walk codes and CIGARs on every read the strict
+certificate passes, or on all reads where both walks get the same parents.
 """
 
 import io
@@ -21,6 +23,7 @@ from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
 from bioinfo1_tpu_torch.ops import chain as ch
+from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
 
 pytestmark = pytest.mark.cuda
@@ -35,6 +38,9 @@ def dev():
 
 def _same(got, want):
     for f in got.__dataclass_fields__:
+        if getattr(want, f) is None:
+            assert getattr(got, f) is None, f
+            continue
         np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
                                       getattr(want, f).cpu().numpy(),
                                       err_msg=f)
@@ -92,6 +98,30 @@ def test_band_kernel_matches_plain(dev, mode, band):
                                            dash_free=dash_free))
 
 
+@pytest.mark.parametrize("band", [128, 256, 4096, 19968])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_parents_kernel_matches_plain(dev, mode, band):
+    q, ql, t, tl = _pairs(np.random.default_rng(10 + mode), 12, 600, 900,
+                          dev)
+    m_eff = bd.band_shapes(600, 900, band)[2]
+    for dash_free in (False, True):
+        args = (q, ql, t, tl, 1, -1, -1)
+        got = bd.align_scores_banded(*args, band=band, mode=mode,
+                                     dash_free=dash_free, want_parents=True)
+        want = bd.align_scores_banded_plain(*args, band=band, mode=mode,
+                                            dash_free=dash_free,
+                                            want_parents=True)
+        for f in ("score", "goal_i", "goal_j"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(bd.parent_cells(got.parents, ql, tl, m_eff),
+                           bd.parent_cells(want.parents, ql, tl, m_eff))
+        # The walk kernel against the plain walk on the same parents.
+        walk_args = (got.parents, got.goal_i, got.goal_j, got.score, q, t,
+                     1, -1, -1, mode)
+        assert torch.equal(tr.walk_parents(*walk_args),
+                           tr.walk_parents_plain(*walk_args))
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("scoring", [(1, -1, -1), (2, -3, 1)])
 def test_full_kernel_matches_plain(dev, mode, scoring):
@@ -108,10 +138,12 @@ def test_wrappers_reject_bad_input(dev):
     n = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         bd.align_scores_banded(q, n, q, n, 1, -1, -1)
+    par = torch.zeros((4, 2, 128), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        tr.walk_parents(par, n, n, n, q, q, 1, -1, -1, 0)
 
 
-@pytest.mark.parametrize("band", [0, 256])
-def test_map_step_cuda_matches_cpu(dev, band):
+def _map_problem():
     rng = np.random.default_rng(11)
     genome = simulate.random_genome(60000, rng)
     index = builder.build_index(genome.tobytes().decode("latin1"), 13, 5,
@@ -123,6 +155,12 @@ def test_map_step_cuda_matches_cpu(dev, band):
     for i, (_, s) in enumerate(recs):
         arr[i, :len(s)] = np.frombuffer(s.encode("latin1"), np.uint8)
         lens[i] = len(s)
+    return index, arr, lens
+
+
+@pytest.mark.parametrize("band", [0, 256])
+def test_map_step_cuda_matches_cpu(dev, band):
+    index, arr, lens = _map_problem()
     outs = []
     for d in (dev, torch.device("cpu")):
         didx = dm.device_index_from_host(index, d)
@@ -136,7 +174,32 @@ def test_map_step_cuda_matches_cpu(dev, band):
                                       getattr(outs[1], f), err_msg=f)
 
 
-def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_map_step_cigar_cuda_matches_cpu(dev, mode):
+    index, arr, lens = _map_problem()
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        didx = dm.device_index_from_host(index, d)
+        outs.append(dm.map_step_cigar(
+            torch.from_numpy(arr).to(d), torch.from_numpy(lens).to(d), didx,
+            1, -1, -1, k=13, w=5, mode=mode, budget=1024, region_cap=4096,
+            band=256).to_numpy())
+    got, want = outs
+    assert got.base.mapped.sum() > 12
+    for f in got.base.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(got.base, f),
+                                      getattr(want.base, f), err_msg=f)
+    for f in ("goal_i", "goal_j", "q_len", "t_len", "certified"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    ok = got.base.mapped & got.certified
+    assert ok.sum() > 8
+    np.testing.assert_array_equal(got.codes[:, ok], want.codes[:, ok])
+
+
+@pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],
+                                   ["-c", "-a", "semiGlobal"]])
+def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch, flags):
     from bioinfo1_tpu_torch import cli
     rng = np.random.default_rng(3)
     genome = simulate.random_genome(50000, rng)
@@ -151,8 +214,9 @@ def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch):
     for platform in ("cuda", "cpu"):
         monkeypatch.setenv("BIOINFO1_PLATFORM", platform)
         out = io.StringIO()
-        assert cli.main([str(tmp_path / "ref.fa"), str(tmp_path / "r.fq")],
-                        stdout=out) == 0
+        assert cli.main(flags + [str(tmp_path / "ref.fa"),
+                                 str(tmp_path / "r.fq")], stdout=out) == 0
         outs.append(out.getvalue())
     assert outs[0] == outs[1]
     assert outs[0].count("\n") >= 12
+    assert outs[0].count("cg:Z:") == (outs[0].count("\n") if flags else 0)
