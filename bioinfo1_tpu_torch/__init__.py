@@ -5,15 +5,19 @@ reference).  Module names follow the JAX package so each counterpart is
 easy to find; every module's docstring names the JAX file it ports.
 
 Layers:
-  cli               command-line driver (score-only slice)
+  cli               command-line entry point
   pipeline/         host pipeline (mapper.py) and the fused step (device_map.py)
   ops/              tensor ops, each kernel beside its plain PyTorch version
   kernels/build.py  nvcc build + ctypes binding of csrc/*.cu
-  utils/            device resolution, stage timers and counters
+  utils/            device resolution, stage timers and counters, CIGAR and
+                    statistics text, the read simulator
+  io/, index/, native.py
+                    FASTA/FASTQ parsing, the index builder and the ctypes
+                    binding of build/libbioinfo1_native.so (numpy and
+                    ctypes only)
 
-Host-only modules (FASTA/FASTQ parsing, the index builder, the native
-PAF serializer, statistics, the read simulator) are imported from
-``bioinfo1_tpu``; they use numpy and ctypes only, never JAX.
+The port imports nothing of ``bioinfo1_tpu``: the host-only modules are
+its own copies.
 """
 
 __version__ = "0.1.0"

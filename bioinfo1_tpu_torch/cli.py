@@ -2,36 +2,108 @@
 
 Same surface, defaults, help/version text and exit codes as the JAX
 package's CLI for the flags the port runs: ``-a -m -n -g -k -w -f -c -s -o
---sam-cigar --resume --profile --batch-size --save-index --load-index -h
---version``, ``--bug-compat`` (except FASTA match nesting) and
-``--devices`` 0 or 1.  The device comes from ``BIOINFO1_PLATFORM``
-(``cuda`` by default, or ``cpu``).
+--sam-cigar --bug-compat --resume --profile --batch-size --save-index
+--load-index -h --version`` and ``--devices`` 0 or 1.  The device comes
+from ``BIOINFO1_PLATFORM`` (``cuda`` by default, or ``cpu``).  ``-c`` where
+no exactness certificate exists (``-a global`` with ``-g >= 0``, ``-a
+local`` / ``semiGlobal`` with ``-g > 0``) and ``--bug-compat`` on a FASTA
+reads file (FASTA match nesting) run on the mapper's staged host path.
 
-Refused with rc 1 and a one-line message, never silently ignored: ``-c``
-where no exactness certificate exists (``-a global`` with ``-g >= 0``,
-``-a local`` / ``semiGlobal`` with ``-g > 0``), ``--bug-compat`` on a
-FASTA reads file (FASTA match nesting) - both run on the JAX package's
-staged host path - ``--devices N`` with N > 1, and the multi-process
-variables ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-``JAX_PROCESS_ID``.
+Refused with rc 1 and a one-line message, never silently ignored:
+``--devices N`` with N > 1, and the multi-process variables
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
+import re
 import sys
 from typing import List, Optional
 
-from bioinfo1_tpu.cli import (HELP_TEXT, PROGRAM_NAME, VERSION, _atof, _atoi,
-                              _resume_state, _write_progress)
-from bioinfo1_tpu.io import fastx
-from bioinfo1_tpu.utils import stats as st
+from bioinfo1_tpu_torch.io import fastx
+from bioinfo1_tpu_torch.utils import stats as st
+
+VERSION = "3.1.0"
+PROGRAM_NAME = "toolForGenomeAllignment"
+
+HELP_TEXT = (
+    "\n"
+    f"Usage: {PROGRAM_NAME}[options] <file1> <file2>\n"
+    "NOTE: file1 needs to be in FASTA format, while the second file will "
+    "contain a set of fragments in either FASTA or FASTQ format.\n"
+    "Options: \n"
+    "\t  -a, --alignment TYPE     Alignment type: global, local, semiGlobal\n"
+    "\t  -m MATCH                 Match score (default: 1)\n"
+    "\t  -n MISMATCH              Mismatch penalty (default: -1)\n"
+    "\t  -g GAP                   Gap penalty (default: -1)\n"
+    "\t  -k KMER                  k-mer length for minimizers (default: 15)\n"
+    "\t  -w WINDOW                window size for minimizers (default: 5)\n"
+    "\t  -f FREQUENCY_THRESHOLD   Frequency threshold factor (default: 0.001)\n"
+    "\t  -c                       Output CIGAR string\n"
+    "\t  -h, --help               Show this help message\n"
+    "\t  --version                Show version information\n"
+    "\t  -s                       Basic statistic for first and second file\n"
+)
 
 _NOT_PORTED = "is not yet ported to bioinfo1_tpu_torch"
 _MULTI_PROCESS_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
                        "JAX_PROCESS_ID")
+
+
+def _write_progress(path: str, completed: int, total, part_bytes) -> None:
+    """Atomic checkpoint write: completed read count plus the output file's
+    byte offset at that point (the resume path truncates to it)."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump({"completed_reads": completed, "total_reads": total,
+                   "part_bytes": part_bytes}, fh)
+    os.replace(tmp, path)
+
+
+def _resume_state(progress_path: str, part_path: str):
+    """(start_at, "a") for --resume.  Output lines are flushed before the
+    progress file updates, so a crash in that window leaves lines beyond
+    completed_reads in the output file; truncate the file to the byte
+    offset the progress file recorded.  Progress files without the offset
+    fall back to append-as-is."""
+    with open(progress_path) as fh:
+        d = json.load(fh)
+    start_at = int(d.get("completed_reads", 0))
+    pb = d.get("part_bytes")
+    if pb is not None:
+        with open(part_path, "r+") as fh:
+            fh.truncate(int(pb))
+    return start_at, "a"
+
+
+def _atof(s: str) -> float:
+    """std::atof semantics: parse the longest leading float, 0.0 on failure
+    (the reference parses -f with atof at team_mapper.cpp:374)."""
+    m = re.match(
+        r"\s*[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?"
+        r"|\s*[+-]?(inf(inity)?|nan)", s, re.IGNORECASE)
+    if not m:
+        return 0.0
+    try:
+        return float(m.group(0))
+    except ValueError:
+        return 0.0
+
+
+def _atoi(s: str) -> int:
+    """std::atoi semantics: parse leading integer, 0 on failure."""
+    s = s.strip()
+    i, n = 0, len(s)
+    if i < n and s[i] in "+-":
+        i += 1
+    j = i
+    while j < n and s[j].isdigit():
+        j += 1
+    if j == i:
+        return 0
+    return int(s[:j])
 
 
 def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
@@ -141,9 +213,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         print(HELP_TEXT, end="", file=out)
         return 1
 
-    # FASTA match nesting is refused below, once the reads file is known.
-    refused = (unported_features(
-        dataclasses.replace(cfg, fasta_match_nesting=False)) or [None])[0]
+    refused = (unported_features(cfg) or [None])[0]
     if refused is None and any(os.environ.get(v)
                                for v in _MULTI_PROCESS_VARS):
         refused = ("a multi-process run (" + " / ".join(_MULTI_PROCESS_VARS)
@@ -175,15 +245,11 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
     from bioinfo1_tpu_torch.utils.tracing import Counters, StageTimers
     timers = StageTimers(device)
     counters = Counters()
-    # FASTA match nesting applies only to a FASTA reads file, which is not
-    # known yet; the index does not depend on it, so build without it and
-    # refuse below once the reads file is sniffed.
     with timers.stage("index_build"):
-        mapper = Mapper(reference_records,
-                        dataclasses.replace(cfg, fasta_match_nesting=False),
-                        load_index=load_index, device=device)
+        mapper = Mapper(reference_records, cfg, load_index=load_index,
+                        device=device)
     if save_index:
-        from bioinfo1_tpu.index.builder import save_index as do_save
+        from bioinfo1_tpu_torch.index.builder import save_index as do_save
         do_save(mapper.index, save_index)
     with timers.stage("index_upload"):
         mapper.device_index()
@@ -211,10 +277,10 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
     except (OSError, fastx.FormatError):
         print("Given file is not in FASTA or FASTQ format! ", file=err)
         return 1
-    if cfg.fasta_match_nesting and not is_fastq:
-        print(f"Error: --bug-compat on a FASTA reads file (FASTA match "
-              f"nesting) {_NOT_PORTED}", file=err)
-        return 1
+    # The FASTA-branch match-nesting bug only applies when the reads file
+    # is FASTA (team_mapper.cpp:629-638); the mapper shares ``cfg``.
+    if cfg.fasta_match_nesting and is_fastq:
+        cfg.fasta_match_nesting = False
 
     if statistic:
         print(file=out)

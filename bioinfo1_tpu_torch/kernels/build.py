@@ -34,7 +34,7 @@ NVCC_LOG = os.path.join(BUILD_DIR, "nvcc.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: argument types (all return int = cudaError_t).
 _SIGNATURES = {
     # f, r, count, R, N, packed_scratch, prev_scratch, out, use_smem, stream
@@ -54,6 +54,8 @@ _SIGNATURES = {
     # out, use_smem, stream
     "bioinfo1_full_score": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
                             _P, _I, _P],
+    # x, out, n, n_iter, step, stream
+    "bioinfo1_int32_probe": [_P, _P, _L, _I, _I, _P],
 }
 
 # Shared memory a block may ask for on Hopper is 227 KB; keep headroom for
@@ -79,16 +81,29 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
+                        "bin", name)
     if os.path.exists(cand):
         return cand
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH); the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} "
+                           "on PATH)")
     return found
+
+
+def _nvcc() -> str:
+    return _cuda_tool("nvcc")
+
+
+def sass() -> str:
+    """``cuobjdump -sass`` of the built library: the machine code of every
+    kernel, one ``Function : <mangled name>`` section each."""
+    ensure_built()
+    proc = subprocess.run([_cuda_tool("cuobjdump"), "-sass", LIB_PATH],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout
 
 
 def ensure_built() -> float:

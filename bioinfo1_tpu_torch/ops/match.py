@@ -124,3 +124,39 @@ def find_matches_combined(min_hash: torch.Tensor, min_pos: torch.Tensor,
     mf = _compact(cf, lo, min_pos, key_pos, max_matches)
     mr = _compact(cr, lo + cf, min_pos, key_pos, max_matches)
     return mf, mr
+
+
+def hash_present(idx_hash: torch.Tensor, min_hash: torch.Tensor
+                 ) -> torch.Tensor:
+    """(B, T) bool: is each minimizer hash present in the sorted strand
+    index?  Gates the reverse-strand lookups of the FASTA match-nesting
+    bug-compat mode on a forward-index hit (team_mapper.cpp:629-638)."""
+    if idx_hash.shape[0] == 0:
+        return torch.zeros(min_hash.shape, dtype=torch.bool,
+                           device=min_hash.device)
+    lo = torch.searchsorted(idx_hash, min_hash.contiguous())
+    return idx_hash[lo.clamp(max=idx_hash.shape[0] - 1)] == min_hash
+
+
+def find_matches(min_hash: torch.Tensor, min_pos: torch.Tensor,
+                 keep: torch.Tensor, idx_hash: torch.Tensor,
+                 idx_pos: torch.Tensor, max_matches: int) -> Matches:
+    """Look up every kept minimizer in ONE strand's sorted index (the
+    staged host path; port of bioinfo1_tpu/ops/match.py ``find_matches``).
+
+    min_hash / min_pos / keep: (B, T) minimizer sweep output (keep = the
+    dedup mask); idx_hash / idx_pos: (U,) the strand index sorted by
+    (hash, pos), hashes int64; ``max_matches``: the per-read budget N."""
+    B, T = min_hash.shape
+    dev = min_hash.device
+    if idx_hash.shape[0] == 0 or T == 0:
+        z = torch.zeros((B, max_matches), dtype=torch.int32, device=dev)
+        zc = torch.zeros((B,), dtype=torch.int32, device=dev)
+        return Matches(f_pos=z, r_pos=z.clone(), count=zc, total=zc.clone(),
+                       overflow=torch.zeros((B,), dtype=torch.bool,
+                                            device=dev))
+    q = min_hash.contiguous()
+    lo = torch.searchsorted(idx_hash, q)
+    hi = torch.searchsorted(idx_hash, q, right=True)
+    cnt = torch.where(keep, hi - lo, 0)
+    return _compact(cnt, lo, min_pos, idx_pos, max_matches)

@@ -16,15 +16,21 @@ reads retry at a budget covering their exact need (bucket boosts combine
 with per-read multipliers by max, and decay when a clean batch needs less
 than half).  Output order is input order.
 
-Not ported yet, and refused rather than ignored: FASTA match nesting
-(``--bug-compat`` on a FASTA reads file), ``-c`` where no exactness
-certificate exists (global mode with gap >= 0, local or semiGlobal with
-gap > 0: the JAX package runs those on its staged host path) and more than
-one device.  Reads the JAX package hands to its staged host path
-(``_map_bucket``: after two fused attempts, or on a realign certificate
-miss) raise ``NotImplementedError`` naming the read.  Unlike the JAX
-package, a device or kernel error is not re-routed: it propagates and the
-run fails.
+Reads the fused step cannot finish take the staged host path
+(``Mapper._map_bucket``, the JAX package's ``_map_bucket``): per-strand
+lookups (``ops/match.find_matches``), chains (K1) and the DP dispatched from
+the host - every read when FASTA match nesting is on (``--bug-compat`` on a
+FASTA reads file), stragglers after two fused attempts, and certificate
+misses no realign pass can settle, which is every read under ``-c`` when no
+exactness certificate exists (global mode with gap >= 0, local or
+semiGlobal with gap > 0).  There the DP is K4 at a band that covers the
+whole matrix - the full DP - walked by K5; the JAX package runs a
+full-matrix wavefront with its own parent layout instead, with the same
+parents and goal cell.
+
+Not ported yet, and refused rather than ignored: more than one device.
+Unlike the JAX package, a device or kernel error is not re-routed to the
+host path: it propagates and the run fails.
 """
 
 from __future__ import annotations
@@ -41,12 +47,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bioinfo1_tpu import native
-from bioinfo1_tpu.index import builder
-from bioinfo1_tpu.utils import cigar as cg
-from bioinfo1_tpu.utils import stats as st
+from bioinfo1_tpu_torch import native
+from bioinfo1_tpu_torch.index import builder
+from bioinfo1_tpu_torch.utils import cigar as cg
+from bioinfo1_tpu_torch.utils import stats as st
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
+from bioinfo1_tpu_torch.ops import chain as chain_ops
+from bioinfo1_tpu_torch.ops import match as match_ops
 from bioinfo1_tpu_torch.ops import minimizer as mz
 from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
@@ -93,11 +101,13 @@ class MapperCounters:
     cert_total: int = 0            # mapped reads through a certified path
     cert_hits: int = 0
     budget_retries: int = 0        # match-budget overflow reruns
-    host_fallbacks: int = 0        # certificate misses re-routed to realign
+    realign_reroutes: int = 0      # certificate misses sent to a realign pass
+    host_fallbacks: int = 0        # reads the fused path handed to the host path
     realign_batches: int = 0       # realign passes run
     realign_chunks: int = 0        # their device dispatches (-c splits them)
     t_fused_s: float = 0.0         # fused step dispatch + fetch
     t_realign_s: float = 0.0       # realign passes
+    t_host_s: float = 0.0          # staged host-path batches
     t_decode_s: float = 0.0        # native CIGAR decode
     t_format_s: float = 0.0        # stats + PAF serialization
 
@@ -105,7 +115,8 @@ class MapperCounters:
         d = dataclasses.asdict(self)
         if self.cert_total:
             d["cert_hit_rate"] = round(self.cert_hits / self.cert_total, 4)
-        for k in ("t_fused_s", "t_realign_s", "t_decode_s", "t_format_s"):
+        for k in ("t_fused_s", "t_realign_s", "t_host_s", "t_decode_s",
+                  "t_format_s"):
             d[k] = round(d[k], 3)
         return d
 
@@ -123,6 +134,20 @@ class ReadMapping:
     score: int = 0
     cigar: Optional[str] = None
     target_begin: Optional[int] = None
+
+
+@dataclasses.dataclass
+class BandPass:
+    """Host copies of one banded pass over packed region pairs: (rows,)
+    arrays, ``codes`` the packed walk codes (None without parents), and the
+    number of device dispatches it took."""
+
+    certified: np.ndarray
+    score: np.ndarray
+    goal_i: np.ndarray
+    goal_j: np.ndarray
+    codes: Optional[np.ndarray]
+    chunks: int
 
 
 # Ceiling on one dispatch's parent tensor (the -c path's largest device
@@ -271,11 +296,6 @@ def certificate_possible(cfg: MapperConfig) -> bool:
 def unported_features(cfg: MapperConfig) -> List[str]:
     """The configuration's features this port does not run yet."""
     out = []
-    if cfg.output_cigar and not certificate_possible(cfg):
-        out.append(f"-c with -a {cfg.align_type} -g {cfg.gap} (no exactness "
-                   "certificate: the staged host path)")
-    if cfg.fasta_match_nesting:
-        out.append("--bug-compat FASTA match nesting")
     if cfg.devices > 1:
         out.append(f"--devices {cfg.devices} (more than one device)")
     return out
@@ -330,6 +350,7 @@ class Mapper:
         self._budget_boost: dict = {}    # cap -> pow-2 budget multiplier
         self._load_band_cache()
         self._device_index = None
+        self._strand_tensors = None
 
     def device_index(self) -> dm.DeviceIndex:
         """The index on the device, packed and uploaded at first use."""
@@ -454,86 +475,115 @@ class Mapper:
     def _to_device(self, *arrays: np.ndarray):
         return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
+    def _strand_index(self, fwd: bool):
+        """One strand's sorted (hash, pos) index on the device, for the
+        staged path's per-strand lookups; uploaded at first use."""
+        with self._counters_lock:
+            if self._strand_tensors is None:
+                self._strand_tensors = tuple(
+                    (torch.from_numpy(s.hash_sorted.astype(np.int64))
+                     .to(self.device),
+                     torch.from_numpy(s.pos_sorted.astype(np.int32))
+                     .to(self.device))
+                    for s in (self.index.fwd, self.index.rev))
+            return self._strand_tensors[0 if fwd else 1]
+
+    def _region_strings(self, seq: str, qb: int, qe: int, tb: int, te: int,
+                        fwd: bool) -> Tuple[str, str]:
+        """Query and target region of one read.  Chain coordinates past
+        either end (oob end windows) read NULs, like the reference's
+        pointer arithmetic into a c_str."""
+        q = seq[qb: qe + 1]
+        q += "\0" * (qe - qb + 1 - len(q))
+        src = self.index.ref_fwd_seq if fwd else self.index.ref_rev_seq
+        t = src[tb: te + 1]
+        t += "\0" * (te - tb + 1 - len(t))
+        return q, t
+
+    def _banded_pass(self, qa: np.ndarray, ql: np.ndarray, ta: np.ndarray,
+                     tl: np.ndarray, W: int, dash_free: bool,
+                     want_parents: bool, strict: bool) -> BandPass:
+        """Banded alignment of packed region pairs at band W (K2, or K4
+        with ``want_parents``), its certificate and, with parents, the walk
+        (K5).  With parents the rows go in chunks whose parent tensor stays
+        under _PARENT_BYTES (a read's result does not depend on its
+        chunk)."""
+        cfg, mode = self.cfg, self._mode
+        q_all, ql_all, t_all, tl_all = self._to_device(qa, ql, ta, tl)
+        n_rows = qa.shape[0]
+        size = n_rows
+        if want_parents:
+            n_steps = bd.band_shapes(qa.shape[1], ta.shape[1], W)[3]
+            size = max(1, int(_PARENT_BYTES
+                              // (bd.parent_rows(n_steps) * W)))
+        host, packed = [], []
+        for lo in range(0, n_rows, size):
+            q_d, ql_d, t_d, tl_d = (x[lo:lo + size] for x in
+                                    (q_all, ql_all, t_all, tl_all))
+            out = bd.align_scores_banded(
+                q_d, ql_d, t_d, tl_d, cfg.match, cfg.mismatch, cfg.gap,
+                band=W, mode=mode, dash_free=dash_free,
+                want_parents=want_parents)
+            cert_d = bd.certify(out.score, q_d, ql_d, t_d, tl_d, cfg.match,
+                                cfg.mismatch, cfg.gap, W, strict=strict,
+                                mode=mode)
+            host.append(torch.stack([cert_d.to(torch.int32), out.score,
+                                     out.goal_i, out.goal_j]).cpu().numpy())
+            if want_parents:
+                packed.append(tr.walk_parents(
+                    out.parents, out.goal_i, out.goal_j, out.score, q_d, t_d,
+                    cfg.match, cfg.mismatch, cfg.gap, mode).cpu().numpy())
+                del out     # frees the parents before the next chunk
+        h = np.concatenate(host, axis=1)
+        codes = np.concatenate(packed, axis=1) if packed else None
+        return BandPass(h[0].astype(bool), h[1], h[2], h[3], codes,
+                        len(host))
+
+    def _timed_decode(self, codes, sel, goal_i, goal_j, ql, tl) -> dict:
+        """{read: (cigar, target_begin)} of the selected reads."""
+        if not len(sel):
+            return {}
+        t_dec = time.perf_counter()
+        cigs, tbs = _decode_cigars(codes, sel, goal_i, goal_j, ql, tl,
+                                   self.cfg)
+        with self._counters_lock:
+            self.counters.t_decode_s += time.perf_counter() - t_dec
+        return dict(zip((int(i) for i in sel), zip(cigs, tbs)))
+
     def _realign_bucket(self, seqs: Sequence[str], hints: dict,
                         ) -> Tuple[List[ReadMapping], List[int]]:
         """Certificate misses: re-run only the banded alignment at the band
         each read's own fused score (an exact lower bound) proves
         certifiable, reusing the exact chain coordinates from the failed
         pass; under -c with parents, the strict certificate and the walk.
-        One pass covers every missed read across length buckets; under -c
-        it is dispatched in row chunks whose parent tensor stays under
-        _PARENT_BYTES (each read's result does not depend on its chunk).
+        One pass covers every missed read across length buckets.
         Returns (results, locs that still missed)."""
         cfg = self.cfg
-        mode = self._mode
         want_cigar = cfg.output_cigar
-        qs, ts = [], []
-        for i in range(len(seqs)):
-            _, qb, qe, tb, te, fwd, _ = hints[i]
-            q = seqs[i][qb: qe + 1]
-            q += "\0" * (qe - qb + 1 - len(q))
-            src = self.index.ref_fwd_seq if fwd else self.index.ref_rev_seq
-            t = src[tb: te + 1]
-            t += "\0" * (te - tb + 1 - len(t))
-            qs.append(q)
-            ts.append(t)
-        qa, ql = _pack_reads(qs, 1)
-        ta, tl = _pack_reads(ts, 1)
+        pairs = [self._region_strings(seqs[i], *hints[i][1:6])
+                 for i in range(len(seqs))]
+        qa, ql = _pack_reads([q for q, _ in pairs], 1)
+        ta, tl = _pack_reads([t for _, t in pairs], 1)
         w_whole = max(qa.shape[1], ta.shape[1] + 2)
         W = min(_pow2_at_least(max(max(h[0] for h in hints.values()), 256),
                                256), -(-w_whole // 128) * 128)
         dash_free = bool(self._dash_free_sticky and self._ref_dash_free
                          and not (qa == 45).any() and not (ta == 45).any())
-        q_all, ql_all, t_all, tl_all = self._to_device(qa, ql, ta, tl)
         n_reads = len(seqs)
-        size = n_reads
-        if want_cigar:
-            n_steps = bd.band_shapes(qa.shape[1], ta.shape[1], W)[3]
-            size = max(1, int(_PARENT_BYTES
-                              // (bd.parent_rows(n_steps) * W)))
-        cert = np.zeros(n_reads, bool)
-        scores = np.zeros(n_reads, np.int64)
-        cig_by_i: dict = {}
-        n_chunks = 0
-        for lo in range(0, n_reads, size):
-            hi = min(lo + size, n_reads)
-            q_d, ql_d, t_d, tl_d = (x[lo:hi] for x in
-                                    (q_all, ql_all, t_all, tl_all))
-            out = bd.align_scores_banded(
-                q_d, ql_d, t_d, tl_d, cfg.match, cfg.mismatch, cfg.gap,
-                band=W, mode=mode, dash_free=dash_free,
-                want_parents=want_cigar)
-            # Non-strict for score-only callers: ties are fine when only
-            # the score is emitted.
-            cert_d = bd.certify(out.score, q_d, ql_d, t_d, tl_d, cfg.match,
-                                cfg.mismatch, cfg.gap, W, strict=want_cigar,
-                                mode=mode)
-            host = torch.stack([cert_d.to(torch.int32), out.score,
-                                out.goal_i, out.goal_j]).cpu().numpy()
-            cert[lo:hi] = host[0].astype(bool)
-            scores[lo:hi] = host[1]
-            if want_cigar:
-                packed = tr.walk_parents(
-                    out.parents, out.goal_i, out.goal_j, out.score, q_d, t_d,
-                    cfg.match, cfg.mismatch, cfg.gap, mode).cpu().numpy()
-                del out     # frees the parents before the next chunk
-                sel = [i for i in range(hi - lo) if cert[lo + i]]
-                if sel:
-                    t_dec = time.perf_counter()
-                    cigs, tbs = _decode_cigars(packed, sel, host[2], host[3],
-                                               ql[lo:hi], tl[lo:hi], cfg)
-                    cig_by_i.update((lo + i, pair)
-                                    for i, pair in zip(sel, zip(cigs, tbs)))
-                    with self._counters_lock:
-                        self.counters.t_decode_s += (time.perf_counter()
-                                                     - t_dec)
-            n_chunks += 1
+        # Non-strict for score-only callers: ties are fine when only the
+        # score is emitted.
+        res = self._banded_pass(qa, ql, ta, tl, W, dash_free, want_cigar,
+                                strict=want_cigar)
+        cert, scores = res.certified[:n_reads], res.score
+        cig_by_i = (self._timed_decode(res.codes, np.flatnonzero(cert),
+                                       res.goal_i, res.goal_j, ql, tl)
+                    if want_cigar else {})
         with self._counters_lock:
             self.counters.cert_total += n_reads
             self.counters.cert_hits += int(cert.sum())
             self.counters.batches += 1
             self.counters.realign_batches += 1
-            self.counters.realign_chunks += n_chunks
+            self.counters.realign_chunks += res.chunks
         results: List[ReadMapping] = []
         missed: List[int] = []
         for i in range(n_reads):
@@ -548,6 +598,127 @@ class Mapper:
                 t_begin=tb, t_end=te, score=int(scores[i]), cigar=cigar,
                 target_begin=target_begin))
         return results, missed
+
+    def _map_bucket(self, seqs: Sequence[str], budget: int,
+                    band_hint: int = 0,
+                    ) -> Tuple[List[ReadMapping], List[int]]:
+        """The staged host path for one group of reads (port of the JAX
+        package's ``_map_bucket``): minimize, per-strand lookup and chain
+        (K1), strand choice and region strings on the host, then the DP.
+        Returns the results and the reads that overflowed ``budget``.
+
+        Score-only runs the full-matrix score (K3).  Under -c, regions
+        wider than 512 whose configuration has a certificate run K4 at band
+        256 (or the band ``band_hint`` proves), retry once at the band the
+        misses need, and fall through to the whole-matrix band; everything
+        else goes straight to K4 at a band that covers the whole matrix,
+        which is the full DP: same scores, parents and goal cell.  K5
+        walks the parents."""
+        cfg = self.cfg
+        k, w = self.index.k, self.index.w
+        arr, lens = _pack_reads(seqs, k + w - 1)
+        arr_d, lens_d = self._to_device(arr, lens)
+        mres = mz.minimize_batch(arr_d, lens_d, k, w,
+                                 oob_end_windows=cfg.oob_end_windows)
+        fwd_hash, fwd_pos = self._strand_index(True)
+        rev_hash, rev_pos = self._strand_index(False)
+        keep_rev = mres.dedup_keep
+        if cfg.fasta_match_nesting:
+            # Bug-compat: rev lookups gated on a fwd-index hit per
+            # minimizer (team_mapper.cpp:629-638).
+            keep_rev = keep_rev & match_ops.hash_present(fwd_hash,
+                                                         mres.hashes)
+        rows = []
+        for keep, idx_hash, idx_pos in ((mres.dedup_keep, fwd_hash, fwd_pos),
+                                        (keep_rev, rev_hash, rev_pos)):
+            got = match_ops.find_matches(mres.hashes, mres.pos, keep,
+                                         idx_hash, idx_pos, budget)
+            ch = chain_ops.lis_chain(got.f_pos, got.r_pos, got.count)
+            rows += [got.overflow.to(torch.int32), ch.length, ch.q_start,
+                     ch.q_end, ch.t_start, ch.t_end]
+        host = torch.stack(rows).cpu().numpy()
+        (over_f, len_f, qs_f, qe_f, ts_f, te_f,
+         over_r, len_r, qs_r, qe_r, ts_r, te_r) = host
+        overflow = (over_f | over_r).astype(bool)
+
+        # Longer chain wins, ties forward (team_mapper.cpp:644-648); 1-based
+        # minimizer positions -> 0-based inclusive windows extended by k
+        # (team_mapper.cpp:653-656).
+        use_fwd = len_f >= len_r
+        have = np.where(use_fwd, len_f, len_r) > 0
+        q_begin = np.where(use_fwd, qs_f, qs_r) - 1
+        q_end = np.where(use_fwd, qe_f, qe_r) + k - 2
+        t_begin = np.where(use_fwd, ts_f, ts_r) - 1
+        t_end = np.where(use_fwd, te_f, te_r) + k - 2
+
+        results = [ReadMapping(mapped=False) for _ in seqs]
+        retry = [i for i in range(len(seqs)) if overflow[i]]
+        jobs = [i for i in range(len(seqs)) if have[i] and not overflow[i]]
+        if not jobs:
+            return results, retry
+        pairs = [self._region_strings(seqs[i], int(q_begin[i]),
+                                      int(q_end[i]), int(t_begin[i]),
+                                      int(t_end[i]), bool(use_fwd[i]))
+                 for i in jobs]
+        qa, ql = _pack_reads([q for q, _ in pairs], 1)
+        ta, tl = _pack_reads([t for _, t in pairs], 1)
+        n_jobs = len(jobs)
+        cig_by_b: dict = {}
+        if not cfg.output_cigar:
+            q_d, ql_d, t_d, tl_d = self._to_device(qa, ql, ta, tl)
+            scores = al.align_scores(q_d, ql_d, t_d, tl_d, self._mode,
+                                     cfg.match, cfg.mismatch,
+                                     cfg.gap).score.cpu().numpy()
+        else:
+            dash_free = not ((qa == 45).any() or (ta == 45).any())
+            # The certificate needs the mode's gap sign and, in global
+            # mode, no literal '-' byte.
+            cert_ok = self._cert_possible and not (self._mode == 0
+                                                   and not dash_free)
+            w_whole = -(-max(int(ql.max()), int(tl.max()) + 2) // 128) * 128
+            res = None
+            if qa.shape[1] > 512 and cert_ok:
+                band = 256
+                if band_hint:
+                    band = min(
+                        _pow2_at_least(max(band_hint, 256), 256),
+                        -(-max(qa.shape[1], ta.shape[1] + 2) // 128) * 128)
+                res = self._banded_pass(qa, ql, ta, tl, band, dash_free,
+                                        True, strict=True)
+                cert = res.certified[:n_jobs]
+                if not cert.all():
+                    # Retry once at the band the misses provably certify
+                    # at, solved from the first pass's scores (exact lower
+                    # bounds), capped at the whole-matrix width.
+                    w_need = _needed_band_arr(
+                        ql.astype(np.int64), np.minimum(tl, ta.shape[1]),
+                        res.score, cfg.match, cfg.mismatch, cfg.gap,
+                        self._mode, strict=True)[:n_jobs]
+                    W2 = min(_pow2_at_least(
+                        max(int(np.max(w_need[~cert])), 2 * band), 512),
+                        w_whole)
+                    res = self._banded_pass(qa, ql, ta, tl, W2, dash_free,
+                                            True, strict=True)
+                    if not res.certified[:n_jobs].all():
+                        res = None
+            if res is None:
+                res = self._banded_pass(qa, ql, ta, tl, w_whole, dash_free,
+                                        True, strict=True)
+            if not res.certified[:n_jobs].all():
+                raise RuntimeError(
+                    f"staged path: band {w_whole} does not cover the whole "
+                    "matrix of every region")
+            scores = res.score
+            cig_by_b = self._timed_decode(res.codes, np.arange(n_jobs),
+                                          res.goal_i, res.goal_j, ql, tl)
+        for b, i in enumerate(jobs):
+            cigar, target_begin = cig_by_b.get(b, (None, None))
+            results[i] = ReadMapping(
+                mapped=True, is_fwd=bool(use_fwd[i]),
+                q_begin=int(q_begin[i]), q_end=int(q_end[i]),
+                t_begin=int(t_begin[i]), t_end=int(t_end[i]),
+                score=int(scores[b]), cigar=cigar, target_begin=target_begin)
+        return results, retry
 
     def _map_bucket_fused(self, seqs: Sequence[str], budget: int):
         """One fused device batch (``map_step``, or ``map_step_cigar``
@@ -606,15 +777,9 @@ class Mapper:
             with self._counters_lock:
                 self.counters.cert_total += int(mapped.sum())
                 self.counters.cert_hits += int((mapped & certified).sum())
-            sel = np.flatnonzero(mapped & certified)
-            if len(sel):
-                t_dec = time.perf_counter()
-                cigs, tbs = _decode_cigars(cig.codes, sel, cig.goal_i,
-                                           cig.goal_j, cig.q_len, cig.t_len,
-                                           cfg)
-                cig_by_i = dict(zip(sel.tolist(), zip(cigs, tbs)))
-                with self._counters_lock:
-                    self.counters.t_decode_s += time.perf_counter() - t_dec
+            cig_by_i = self._timed_decode(
+                cig.codes, np.flatnonzero(mapped & certified), cig.goal_i,
+                cig.goal_j, cig.q_len, cig.t_len)
         else:
             band = self._bucket_band(cap, False)
             out = dm.map_step(
@@ -676,63 +841,81 @@ class Mapper:
         retry_need[-1] = int(out.need[:n_real].max())
         return results, retry, realign, hint, retry_need
 
-    def map_batch(self, seqs: Sequence[str],
-                  names: Optional[Sequence[str]] = None) -> List[ReadMapping]:
-        """Map one batch of reads through the budget ladder and the realign
-        pass.  ``names`` only label errors."""
+    def map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
+        """Map one batch of reads: the fused step under the budget ladder,
+        the realign pass for certificate misses with a provable band, and
+        the staged host path for the rest."""
         cfg = self.cfg
+        # FASTA match nesting exists only on the staged path.
+        fused = not cfg.fasta_match_nesting
         results: List[ReadMapping] = [ReadMapping(mapped=False)] * len(seqs)
         pending = list(range(len(seqs)))
-        staged: set = set()         # reads the JAX package stages on host
+        force_host: set = set()     # certificate misses no band can settle
         mult: dict = {}             # per-read budget multiplier (overflow)
         band_hint: dict = {}        # per-read certifying band (fused score)
         budget = cfg.initial_match_budget
+        floor = cfg.k + cfg.w - 1
         attempts = 0
         while pending:
-            # After two fused rounds the JAX package sends the stragglers
-            # (regions longer than the fused step's cap) to its staged host
-            # path, as it does reads whose realign pass missed.
-            if attempts >= 2:
-                staged.update(i for i in pending if i not in band_hint)
-            staged_now = [i for i in pending if i in staged]
-            if staged_now:
-                i = staged_now[0]
-                who = names[i] if names is not None else f"#{i}"
-                raise NotImplementedError(
-                    f"read {who} ({len(seqs[i])} bp) needs the staged host "
-                    "path (pipeline/mapper._map_bucket), which is not yet "
-                    "ported to bioinfo1_tpu_torch")
+            # Regions longer than the fused step's cap (chains spanning far
+            # more target than query) never resolve by budget doubling;
+            # after two fused rounds the stragglers take the host path.
+            if attempts >= 2 and fused:
+                fused = False
+                with self._counters_lock:
+                    self.counters.host_fallbacks += sum(
+                        1 for i in pending
+                        if i not in band_hint and i not in force_host)
             attempts += 1
-            band_all = [i for i in pending if i in band_hint]
+            # One realign pass covers every missed read with a proven band,
+            # whatever its length bucket.
+            band_all = [i for i in pending
+                        if i in band_hint and i not in force_host]
             band_members = set(band_all)
             rest = [i for i in pending if i not in band_members]
-            grouped = [(band_all, "band")] if band_all else []
-            grouped += [([rest[j] for j in bucket], "fused")
-                        for bucket in _bucket_indices(
-                            [len(seqs[i]) for i in rest], cfg.bucket_growth,
-                            cfg.k + cfg.w - 1)]
+            pairs = [(band_all, "band")]
+            for bucket in _bucket_indices([len(seqs[i]) for i in rest],
+                                          cfg.bucket_growth, floor):
+                idxs = [rest[j] for j in bucket]
+                on_dev = [i for i in idxs if fused and i not in force_host]
+                on_dev_s = set(on_dev)
+                host_idx = [i for i in idxs if i not in on_dev_s]
+                pairs.append((on_dev, "fused"))
+                # Host-path -c dispatches are memory-bound by their parent
+                # tensors (up to whole-matrix width): 32-read chunks.
+                step = 32 if cfg.output_cigar else max(len(host_idx), 1)
+                pairs += [(host_idx[o:o + step], "host")
+                          for o in range(0, len(host_idx), step)]
             next_pending: List[int] = []
-            for sub_idxs, kind in grouped:
+            for sub_idxs, kind in pairs:
+                if not sub_idxs:
+                    continue
                 sub = [seqs[i] for i in sub_idxs]
                 # Budget scales with the bucket's canonical cap (~3L/8
                 # covers the expected per-strand match total); the bucket
                 # boost and the per-read multipliers both target absolute
                 # budgets covering an observed need, so combine by max.
-                cap = _bucket_cap(max(len(s) for s in sub), cfg.k + cfg.w - 1)
+                cap = _bucket_cap(max(len(s) for s in sub), floor)
                 base = max(_pow2_at_least(budget, 8),
                            -(-3 * cap // (8 * 128)) * 128)
                 b_budget = base * max(self._budget_boost.get(cap, 1),
                                       max(mult.get(i, 1) for i in sub_idxs))
                 t_call = time.perf_counter()
                 need: dict = {}
+                retry: List[int] = []
+                realign: List[int] = []
+                hints: dict = {}
                 if kind == "band":
                     res, realign = self._realign_bucket(
                         sub, {loc: band_hint[i]
                               for loc, i in enumerate(sub_idxs)})
-                    retry, hints = [], {}
-                else:
+                elif kind == "fused":
                     res, retry, realign, hints, need = \
                         self._map_bucket_fused(sub, b_budget)
+                else:
+                    res, retry = self._map_bucket(
+                        sub, b_budget, band_hint=max(
+                            band_hint.get(i, (0,))[0] for i in sub_idxs))
                 retry_s, realign_s = set(retry), set(realign)
                 # >2% of a batch overflowing marks the bucket repeat-dense:
                 # widen its future starting budget to cover the exact
@@ -754,13 +937,20 @@ class Mapper:
                     # boosted budget: decay one step.
                     self._budget_boost[cap] //= 2
                 dt_call = time.perf_counter() - t_call
+                to_realign = [loc for loc in realign_s
+                              if kind == "fused" and loc in hints]
                 with self._counters_lock:
                     if kind == "band":
                         self.counters.t_realign_s += dt_call
-                    else:
+                    elif kind == "fused":
                         self.counters.t_fused_s += dt_call
+                    else:
+                        self.counters.t_host_s += dt_call
+                        self.counters.batches += 1
                     self.counters.budget_retries += len(retry_s)
-                    self.counters.host_fallbacks += len(realign_s)
+                    self.counters.realign_reroutes += len(to_realign)
+                    self.counters.host_fallbacks += (len(realign_s)
+                                                     - len(to_realign))
                 for loc, i in enumerate(sub_idxs):
                     if loc in retry_s:
                         # Jump straight to a multiplier covering the exact
@@ -771,16 +961,18 @@ class Mapper:
                         next_pending.append(i)
                     elif loc in realign_s:
                         # First miss with a provable band -> realign pass;
-                        # a second miss (or no finite band) -> staged path.
+                        # a second miss (or no finite band) -> host path.
                         if kind == "fused" and loc in hints:
                             band_hint[i] = hints[loc]
                         else:
                             band_hint.pop(i, None)
-                            staged.add(i)
+                            force_host.add(i)
                         next_pending.append(i)
                     else:
                         results[i] = res[loc]
             pending = next_pending
+            if attempts >= 24:      # safety: ~16M matches per read
+                break
         cells = 0.0
         n_mapped = 0
         for r in results:
@@ -900,8 +1092,7 @@ class Mapper:
                     or sum(c for *_x, c in in_flight) + cost
                     > max_inflight_bytes):
                 complete_oldest()
-            fut = executor.submit(self.map_batch, [s for _, s in chunk],
-                                  [n for n, _ in chunk])
+            fut = executor.submit(self.map_batch, [s for _, s in chunk])
             in_flight.append((entries, chunk, fut, cost))
 
         def drain():

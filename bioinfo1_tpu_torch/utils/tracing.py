@@ -2,7 +2,11 @@
 
 ``StageTimers.stage`` synchronises the CUDA device before it reads the
 clock, so a stage's wall time includes the device work it queued (PyTorch
-returns before the card finishes).  Profiler hooks are not ported yet.
+returns before the card finishes).  ``--profile`` prints these, the
+``Counters`` line and the mapper's own counters (pipeline/mapper.py
+``MapperCounters``: ``t_fused_s``, ``t_realign_s``, ``t_host_s`` for the
+staged host path, ``realign_reroutes``, ``host_fallbacks``, ...).
+Profiler hooks are not ported yet.
 """
 
 from __future__ import annotations

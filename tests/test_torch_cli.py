@@ -6,9 +6,9 @@ with a 300-base deletion, so the realign pass runs) go through
 stdout, or the -o file, must be identical.  Covers FASTA and FASTQ reads,
 global mode, -s, and -o with --resume (test_torch_cli_modes.py covers the
 local and semiGlobal modes and --bug-compat, test_torch_cli_cigar*.py the
--c runs).  What the port does not run yet must exit 1 with its message:
--c without an exactness certificate, FASTA match nesting, more than one
-device, a multi-process run.
+-c runs, test_torch_cli_staged*.py the staged host path).  What the port
+does not run yet must exit 1 with its message: more than one device, a
+multi-process run.
 """
 
 import io
@@ -104,11 +104,8 @@ def test_cli_file_output_and_resume_match_jax(inputs):
 
 
 @pytest.mark.parametrize("flags,env,reads,needle", [
-    (["-c", "-g", "1"], {}, "fq", "-c with -a global -g 1"),
-    (["-c", "-a", "local", "-g", "1"], {}, "fq", "-c with -a local -g 1"),
     (["--devices", "2"], {}, "fq", "--devices 2"),
     ([], {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"}, "fq", "multi-process"),
-    (["--bug-compat"], {}, "fa", "FASTA match nesting"),
 ])
 def test_unported_flags_exit_1(inputs, monkeypatch, flags, env, reads,
                                needle):

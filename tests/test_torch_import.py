@@ -3,6 +3,7 @@ asked for and missing."""
 
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -11,6 +12,14 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_NO_JAX = """
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "bioinfo1_tpu" or m.startswith("bioinfo1_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
 _IMPORT_ALL = """
 import pkgutil, sys
 import bioinfo1_tpu_torch, bioinfo1_tpu_torch.cli
@@ -18,20 +27,41 @@ import bioinfo1_tpu_torch.pipeline.mapper
 for m in pkgutil.walk_packages(bioinfo1_tpu_torch.__path__,
                                "bioinfo1_tpu_torch."):
     __import__(m.name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert not bad, bad
-print("ok")
-"""
+""" + _NO_JAX
+
+_IMPORT_ENTRY_POINTS = """
+import sys
+import chip_smoke, bench_torch
+""" + _NO_JAX
 
 
 def test_port_imports_no_jax():
+    """Neither the port's modules nor its two entry points at the root
+    bring in jax or anything of the JAX package (``bioinfo1_tpu`` itself
+    or ``bioinfo1_tpu.*``; ``bioinfo1_tpu_torch`` is the port)."""
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    for code in (_IMPORT_ALL, _IMPORT_ENTRY_POINTS):
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip() == "ok"
+
+
+def test_port_sources_name_no_jax_package_import():
+    """No ``import bioinfo1_tpu`` / ``from bioinfo1_tpu...`` line in the
+    port's sources or its entry points."""
+    pat = re.compile(r"^\s*(from|import) +bioinfo1_tpu[. ]", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_torch.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO,
+                                                   "bioinfo1_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -74,5 +104,5 @@ def test_kernel_sources_build_into_build_dir():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = sorted(os.path.basename(p) for p in build._sources())
     assert names == ["band_score.cu", "common.cuh", "full_score.cu",
-                     "lis_chain.cu", "walk_parents.cu"]
+                     "int32_probe.cu", "lis_chain.cu", "walk_parents.cu"]
     assert len(build.source_hash()) == 64

@@ -18,13 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from bioinfo1_tpu.index import builder
-from bioinfo1_tpu.utils import simulate
+from bioinfo1_tpu_torch.index import builder
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
 from bioinfo1_tpu_torch.ops import chain as ch
+from bioinfo1_tpu_torch.ops import probe
 from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
+from bioinfo1_tpu_torch.utils import simulate
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +123,52 @@ def test_band_parents_kernel_matches_plain(dev, mode, band):
                            tr.walk_parents_plain(*walk_args))
 
 
+@pytest.mark.parametrize("scoring", [(1, -1, 1), (1, -1, 0)])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_parents_whole_matrix_matches_plain(dev, mode, scoring):
+    """The staged path's -c shape: a band that covers the whole matrix,
+    under scorings with no exactness certificate (many ties)."""
+    q, ql, t, tl = _pairs(np.random.default_rng(20 + mode), 12, 600, 900,
+                          dev)
+    W = -(-max(int(ql.max()), int(tl.max()) + 2) // 128) * 128
+    m_eff = bd.band_shapes(600, 900, W)[2]
+    args = (q, ql, t, tl, *scoring)
+    got = bd.align_scores_banded(*args, band=W, mode=mode,
+                                 want_parents=True)
+    want = bd.align_scores_banded_plain(*args, band=W, mode=mode,
+                                        want_parents=True)
+    for f in ("score", "goal_i", "goal_j"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(bd.parent_cells(got.parents, ql, tl, m_eff),
+                       bd.parent_cells(want.parents, ql, tl, m_eff))
+    assert bool(bd.certify(got.score, *args, W, strict=True,
+                           mode=mode).all())
+    walk_args = (got.parents, got.goal_i, got.goal_j, got.score, q, t,
+                 *scoring, mode)
+    assert torch.equal(tr.walk_parents(*walk_args),
+                       tr.walk_parents_plain(*walk_args))
+    # The full-matrix score kernel sees the same DP.
+    full = al.align_scores(q, ql, t, tl, mode, *scoring)
+    for f in ("score", "goal_i", "goal_j"):
+        assert torch.equal(getattr(got, f), getattr(full, f)), f
+
+
+@pytest.mark.parametrize("shape,n_iter", [((256, 1024), 100), ((8, 128), 0),
+                                          ((3, 5, 7), 7), ((1000,), 33)])
+def test_int32_probe_kernel_matches_plain(dev, shape, n_iter):
+    rng = np.random.default_rng(n_iter)
+    x = torch.from_numpy(rng.integers(-10**6, 10**6, shape)
+                         .astype(np.int32)).to(dev)
+    x.view(-1)[:3] = torch.tensor([2**31 - 1, -2**31, 2**31 - 50],
+                                  dtype=torch.int32)     # wrap-around
+    before = probe.int32_probe.launches
+    got = probe.int32_probe(x, n_iter)
+    assert probe.int32_probe.launches == before + 1
+    assert torch.equal(got, probe.int32_probe_plain(x, n_iter))
+    with pytest.raises(ValueError):
+        probe.int32_probe(x.view(-1)[::2], 1)           # not contiguous
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("scoring", [(1, -1, -1), (2, -3, 1)])
 def test_full_kernel_matches_plain(dev, mode, scoring):
@@ -198,7 +245,9 @@ def test_map_step_cigar_cuda_matches_cpu(dev, mode):
 
 
 @pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],
-                                   ["-c", "-a", "semiGlobal"]])
+                                   ["-c", "-a", "semiGlobal"],
+                                   ["-c", "-g", "1"],
+                                   ["-c", "-a", "semiGlobal", "-g", "1"]])
 def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch, flags):
     from bioinfo1_tpu_torch import cli
     rng = np.random.default_rng(3)
@@ -220,3 +269,28 @@ def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch, flags):
     assert outs[0] == outs[1]
     assert outs[0].count("\n") >= 12
     assert outs[0].count("cg:Z:") == (outs[0].count("\n") if flags else 0)
+
+
+def test_cli_bug_compat_fasta_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """FASTA match nesting: the whole run on the staged host path."""
+    from bioinfo1_tpu_torch import cli
+    rng = np.random.default_rng(4)
+    genome = simulate.random_genome(50000, rng)
+    (tmp_path / "ref.fa").write_text(
+        ">g\n" + genome.tobytes().decode("latin1") + "\n")
+    recs = simulate.simulate_reads(genome, [300, 900, 2500] * 6, rng)
+    with open(tmp_path / "r.fa", "w") as fh:
+        for name, s in recs:
+            fh.write(f">{name}\n{s}\n")
+    monkeypatch.setenv("BIOINFO1_BAND_CACHE", "0")
+    for flags in (["--bug-compat"], ["--bug-compat", "-c", "-a", "local"]):
+        outs = []
+        for platform in ("cuda", "cpu"):
+            monkeypatch.setenv("BIOINFO1_PLATFORM", platform)
+            out = io.StringIO()
+            assert cli.main(flags + [str(tmp_path / "ref.fa"),
+                                     str(tmp_path / "r.fa")],
+                            stdout=out) == 0
+            outs.append(out.getvalue())
+        assert outs[0] == outs[1]
+        assert outs[0].count("\n") >= 5

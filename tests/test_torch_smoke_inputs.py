@@ -1,10 +1,11 @@
-"""chip_smoke.py makes its own ONT-profile data and reads its own profile;
-both are checked here on the CPU.
+"""chip_smoke.py's ONT-profile data, its bounds and its profile reader,
+checked here on the CPU.
 
-The smoke's simulator must draw exactly what bioinfo1_tpu/utils/simulate.py
-draws from the same seed, so its genome and reads are the ones the JAX
-package's tests and tools use.  The smoke also imports no JAX and, with no
-CUDA device, exits non-zero before printing a result.
+The smoke draws its genome and reads with the port's simulator
+(bioinfo1_tpu_torch/utils/simulate.py), which must draw exactly what
+bioinfo1_tpu/utils/simulate.py draws from the same seed, so they are the
+ones the JAX package's tests and tools use.  The smoke also imports no JAX
+and, with no CUDA device, exits non-zero before printing a result.
 """
 
 import importlib.util
@@ -33,7 +34,7 @@ def smoke():
 
 @pytest.mark.parametrize("seed", [0, 20250817])
 def test_random_genome_matches_simulate(smoke, seed):
-    got = smoke.random_genome(50_000, np.random.default_rng(seed))
+    got = smoke.sim.random_genome(50_000, np.random.default_rng(seed))
     want = simulate.random_genome(50_000, np.random.default_rng(seed))
     np.testing.assert_array_equal(got, want)
 
@@ -41,7 +42,7 @@ def test_random_genome_matches_simulate(smoke, seed):
 @pytest.mark.parametrize("seed", [1, 7, 99])
 def test_mutate_read_matches_simulate(smoke, seed):
     frag = simulate.random_genome(6000, np.random.default_rng(seed + 1000))
-    got = smoke.mutate_read(frag, np.random.default_rng(seed))
+    got = smoke.sim.mutate_read(frag, np.random.default_rng(seed))
     want = simulate.mutate_read(frag, np.random.default_rng(seed))
     np.testing.assert_array_equal(got, want)
 
@@ -49,9 +50,36 @@ def test_mutate_read_matches_simulate(smoke, seed):
 def test_simulate_reads_matches_simulate(smoke):
     genome = simulate.random_genome(200_000, np.random.default_rng(5))
     lengths = [200, 500, 2000, 4000, 8000, 350, 2000, 4000]
-    got = smoke.simulate_reads(genome, lengths, np.random.default_rng(6))
+    got = smoke.sim.simulate_reads(genome, lengths, np.random.default_rng(6))
     want = simulate.simulate_reads(genome, lengths, np.random.default_rng(6))
     assert got == want
+
+
+def test_bound_takes_the_larger_of_bytes_and_operations(smoke):
+    row = {"bytes": 3.35e9, "work": 10**9}
+    assert smoke.bound(row, 0) == (1.0, "bytes")
+    ms, by = smoke.bound(row, 67)
+    assert by == "operations" and abs(ms - 2.0) < 1e-9
+
+
+def test_band_work_counts_matrix_cells_not_swept_lanes(smoke):
+    """The bound's work is what the function needs (cells of the matrix
+    inside the band); the lanes the kernel sweeps stand beside it."""
+    q = torch.zeros((3, 128), dtype=torch.uint8)
+    t = torch.zeros((3, 512), dtype=torch.uint8)
+    ql = torch.tensor([128, 32, 0], dtype=torch.int32)
+    tl = torch.tensor([300, 40, 0], dtype=torch.int32)
+    row = smoke.band_work(q, ql, t, tl, 128, False)
+    # Pair 0: the target is cut at m_eff = 256; rows i see j from
+    # max(1, i - 128) to min(256, i + 127).  Pair 1 lies wholly in the band.
+    want = sum(min(256, i + 127) - max(1, i - 128) + 1
+               for i in range(1, 129)) + 32 * 40
+    assert row["work"] == want and row["unit"] == "cells"
+    assert row["swept"] == ((128 + 256 - 1) + (32 + 40 - 1)) * 128
+    assert row["swept"] > row["work"]
+    with_parents = smoke.band_work(q, ql, t, tl, 128, True)
+    assert with_parents["bytes"] == row["bytes"] + (want + 3) // 4
+    assert set(smoke.NEEDED_OPS) == set(smoke.KERNELS)
 
 
 def test_device_time_merges_overlapping_intervals(smoke):
