@@ -416,8 +416,10 @@ def measure_sol(sizes: Sizes = FULL,
     the kernel's SASS).  (b) K2's band-cell fill rate at the 8 kb -c shape
     (global, ``dash_free`` and general), input varied per repetition,
     cells = B * (q_len + t_len) * W, every lane of every diagonal.  (c) the
-    int32 instructions K2 issues per cell, counted in the SASS of its cell
-    loop: ``gcups_sol_pct`` = (b) / ((a, issued) / (c)), the share of the
+    int32 instructions K2 issues per cell: the integer instructions in the
+    SASS of the interior pair loop of the kernel that served (b), over the
+    2 * LPT cells one trip computes (``sass_census.band_interior_loop``):
+    ``gcups_sol_pct`` = (b) / ((a, issued) / (c)), the share of the
     card's issue rate this kernel's own instruction stream uses.  (d) what
     the function needs: ``gcups_needed_pct`` = matrix cells inside the band
     (``band_cells``) per second / ((a, issued) / NEEDED_OPS_PER_CELL), the
@@ -479,8 +481,13 @@ def measure_sol(sizes: Sizes = FULL,
     cps, cps_gen = cells / dt_fill, cells / fill_s(False)
     m_eff = bd.band_shapes(n, 2 * n, Wf)[2]
     needed_cps = band_cells(ql, tl.clamp(max=m_eff), Wf) / dt_fill
-    loops = sass.cell_loops(listing, "band_score_kernelILb0E")[:2]
-    ops_per_cell = sum(r["by_kind"].get("int", 0) for r in loops) / len(loops)
+    # The kernel that served the fill: its interior pair loop computes
+    # 2 * LPT cells a trip.
+    plan = bd.band_plan(Wf, B, False)
+    loop = sass.band_interior_loop(
+        listing, sass.band_reg_needle(False, True, 0, plan.lpt,
+                                      plan.path == "warps"), plan.lpt)
+    ops_per_cell = loop["int_per_cell"]
     out.update(
         int32_tops=round(src_rate / 1e12, 3),
         int32_issued_tops=round(issued_rate / 1e12, 3),
@@ -493,8 +500,9 @@ def measure_sol(sizes: Sizes = FULL,
             100 * needed_cps / (issued_rate / NEEDED_OPS_PER_CELL), 1),
         issued_over_needed=round(ops_per_cell / NEEDED_OPS_PER_CELL, 2),
         probe_ms=[d1, d2], probe_sass=census,
-        cell_loops=[{k: r[k] for k in ("first", "last", "instructions",
-                                       "by_kind")} for r in loops],
+        band_plan=dataclasses.asdict(plan),
+        cell_loops=[{k: loop[k] for k in ("first", "last", "instructions",
+                                          "by_kind", "cells_per_trip")}],
         clocks_sm_max_power_draw=clocks)
     return out
 

@@ -36,15 +36,32 @@ __device__ __forceinline__ T block_max(T v, T* scratch, T identity) {
   return r;
 }
 
-// Opt a kernel into `bytes` of dynamic shared memory.  Set whenever any is
-// used: the 48 KB default limit also counts the kernel's static buffers,
-// so a request of exactly 48 KB already needs the opt-in.
+// Opt a kernel into dynamic shared memory before a launch that asks for
+// `bytes` of it.  Set whenever any is used: the 48 KB default limit also
+// counts the kernel's static buffers, so a request of exactly 48 KB already
+// needs the opt-in.  The attribute is set to the most the kernel may have
+// (the device's opt-in limit less its static buffers), never to `bytes`:
+// the attribute is per kernel and the mapper launches from several host
+// threads, so a thread that set a small value between another thread's
+// opt-in and its launch would make that launch fail (invalid argument).
+// Every caller writing the same value makes the order irrelevant.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes == 0) return cudaSuccess;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  int device = 0, optin = 0;
+  e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return e;
+  const size_t most = static_cast<size_t>(optin) - fa.sharedSizeBytes;
+  if (bytes > most) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+                              static_cast<int>(most));
 }
 
 }  // namespace bioinfo1

@@ -40,12 +40,14 @@ _SIGNATURES = {
     # f, r, count, R, N, packed_scratch, prev_scratch, out, use_smem, stream
     "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     # q, n, n_pad, t, m, m_eff, q_len, t_len, B, W, n_steps, mode,
-    # dash_free, match, mismatch, gap, scratch, out, use_smem, stream
+    # dash_free, match, mismatch, gap, scratch, out, path, lpt,
+    # reads_per_cta, smem_bytes (ops/band.band_plan), stream
     "bioinfo1_band_score": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _I, _P],
+                            _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     # as bioinfo1_band_score, with parents before the stream
     "bioinfo1_band_parents": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+                              _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                              _P],
     # parents, S4, B, W, goal_i, goal_j, score, q, qn, t, tm, mode, match,
     # mismatch, gap, out, stream
     "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
@@ -71,9 +73,17 @@ def _sources():
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS, plus one -D for each name in BIOINFO1_NVCC_DEFINES
+    (comma-separated; a measurement script's switch for trial
+    instantiations, never set by the package)."""
+    names = os.environ.get("BIOINFO1_NVCC_DEFINES", "")
+    return NVCC_FLAGS + tuple(f"-D{n}" for n in names.split(",") if n)
+
+
 def source_hash() -> str:
     """sha256 over the nvcc flags and every source and header."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -123,7 +133,7 @@ def ensure_built() -> float:
     for src in (p for p in _sources() if p.endswith(".cu")):
         obj = os.path.join(BUILD_DIR,
                            f"{os.path.basename(src)}.{os.getpid()}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        cmd = [nvcc, *nvcc_flags(), "-c", src, "-o", obj]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     log, failed = [], []

@@ -20,13 +20,17 @@ reads them).  Unlike the JAX wrapper, B is not padded to 128.
 ``align_scores_banded`` is the wrapper of kernels K2 (score only) and K4
 (with parents), both in csrc/band_score.cu: CUDA tensors launch a kernel
 (counted on ``align_scores_banded.launches`` and ``.parent_launches``),
-CPU tensors take ``align_scores_banded_plain``.  ``certify`` is plain
+CPU tensors take ``align_scores_banded_plain``.  ``band_plan`` picks the
+kernel from W alone: lanes in registers up to ``W_REG``, the scratch
+kernel above.  ``certify`` is plain
 tensor code on either device, as in the JAX package.  The port rounds
 every band to 128 lanes on both devices (the JAX CPU path rounds its
 realign band to 16).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -204,6 +208,61 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
     return AlignOut(*(x.to(torch.int32) for x in out), parents=parents)
 
 
+# The kernels' dispatch (csrc/band_score.cu): by W alone.  Up to W_REG lanes
+# a thread keeps LPT band lanes in registers: one warp per read ("warp",
+# W == 32 * LPT, several reads per CTA, no block sync) or W / LPT threads
+# per read ("warps", one read per CTA, one block sync per diagonal).  Wider
+# bands take the scratch kernel (one CTA per read, the diagonals in shared
+# memory or, past SMEM_LIMIT, a per-read global scratch).
+W_REG = 4096
+PATHS = ("warp", "warps", "scratch")       # the C launcher's path numbers
+WARP_LPT = {128: 4, 256: 8}                # "warp" path: W -> LPT
+WARPS_LPT = 8
+MAX_READS_PER_CTA = 4
+SM_COUNT = 132                             # H100
+SCRATCH_THREADS = 512
+# Static shared memory of the register kernel: four 32-entry warp-edge
+# arrays and 32 goal triples.
+REG_SMEM_BYTES = 4 * 32 * 4 + 32 * 3 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    path: str               # one of PATHS
+    lpt: int                # band lanes a thread keeps (0: scratch path)
+    threads_per_read: int
+    reads_per_cta: int
+    smem_bytes: int         # shared memory of one CTA
+    scratch_ints: int       # per-read int32 global scratch (0: none)
+
+    @property
+    def threads_per_cta(self) -> int:
+        return self.threads_per_read * self.reads_per_cta
+
+
+def band_plan(W: int, B: int, want_parents: bool) -> BandPlan:
+    """Which kernel of csrc/band_score.cu serves a W-lane band, and its
+    launch shape.  The path depends on W alone; B only sets how many
+    one-warp reads share a CTA (more once the reads outnumber what the
+    card's SMs hold at one CTA each)."""
+    if W % LANES or W < LANES:
+        raise ValueError(f"band_plan: W={W} is not a multiple of {LANES}")
+    if W in WARP_LPT:
+        lpt = WARP_LPT[W]
+        rpc = max(1, min(MAX_READS_PER_CTA, B // (2 * SM_COUNT)))
+        return BandPlan("warp", lpt, W // lpt, rpc, REG_SMEM_BYTES, 0)
+    if W <= W_REG:
+        return BandPlan("warps", WARPS_LPT, W // WARPS_LPT, 1,
+                        REG_SMEM_BYTES, 0)
+    # Per-read state: three int32 diagonals, plus K4's W accumulator bytes
+    # (csrc/band_score.cu state_ints).
+    state_ints = 3 * W + (W // 4 if want_parents else 0)
+    use_smem = 4 * state_ints <= build.SMEM_LIMIT
+    return BandPlan("scratch", 0, min(W, SCRATCH_THREADS), 1,
+                    4 * state_ints if use_smem else 0,
+                    0 if use_smem else state_ints)
+
+
 def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
                         t_bytes: torch.Tensor, t_lens: torch.Tensor,
                         match: int, mismatch: int, gap: int,
@@ -230,17 +289,15 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
     parents = (torch.empty((parent_rows(n_steps), B, W), dtype=torch.uint8,
                            device=dev) if want_parents else None)
     if B:
-        # Per-read state: three int32 diagonals, plus K4's W accumulator
-        # bytes (csrc/band_score.cu state_ints).
-        state_ints = 3 * W + (W // 4 if want_parents else 0)
-        use_smem = 4 * state_ints <= build.SMEM_LIMIT
-        scratch = (None if use_smem else torch.empty(
-            (B, state_ints), dtype=torch.int32, device=dev))
+        plan = band_plan(W, B, want_parents)
+        scratch = (torch.empty((B, plan.scratch_ints), dtype=torch.int32,
+                               device=dev) if plan.scratch_ints else None)
         args = [q_bytes.data_ptr(), n, n_pad, t_bytes.data_ptr(), m, m_eff,
                 q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,
                 int(dash_free), match, mismatch, gap,
                 0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                int(use_smem)]
+                PATHS.index(plan.path), plan.lpt, plan.reads_per_cta,
+                plan.smem_bytes]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if want_parents:
             build.launch(align_scores_banded, "bioinfo1_band_parents", *args,

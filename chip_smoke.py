@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile-map]
+    python3 chip_smoke.py [--profile-map | --lpt-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -13,7 +13,12 @@ run):
      banded score + parents (parents compared on the cells they are
      defined on, ops/band.parent_cells), K5 traceback walk (on each K4
      parent tensor; K4 and K5 also at a band that covers the whole
-     matrix), K6 int32 probe.
+     matrix), K6 int32 probe.  K2 and K4 run on every dispatch path of
+     ops/band.band_plan, each row naming its path and lanes per thread:
+     one warp per read (W = 128, 256; also with more reads than fill
+     whole CTAs), several warps per read (W = 512, 1024, 4096) and the
+     scratch kernel (W = 19968), all three modes and both dash_free
+     settings on each.
   2. the CLI's default score-only path at E. coli scale: a 4,641,652 bp
      synthetic genome (direct-address index on the card) and 2,048
      ONT-profile reads (2/4/8 kb plus 10% at 200-500 bp) through
@@ -42,6 +47,10 @@ run):
      with adapted bands, without and then under torch.profiler (device
      busy time and share, device time and launches by kernel, the
      mapper's counters of each pass).
+
+  With --lpt-trial phase 0 builds K2 / K4 with every lanes-per-thread
+  variant, phase 1t times them at the phase-1 pairs (the table behind
+  ops/band.WARP_LPT and WARPS_LPT), and the run ends there.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -298,28 +307,54 @@ def phase_kernels(dev) -> dict:
 
     scoring = (1, -1, -1)
     q, ql, t, tl = pair_inputs(rng, 256, 4096, 6144, dev)
-    for mode in (0, 1, 2):
-        for dash_free in (True, False):
-            row = compare(
-                f"band W=256 mode={mode} dash_free={dash_free}",
-                lambda: bd.align_scores_banded(q, ql, t, tl, *scoring,
-                                               band=256, mode=mode,
-                                               dash_free=dash_free),
-                lambda: bd.align_scores_banded_plain(
-                    q, ql, t, tl, *scoring, band=256, mode=mode,
-                    dash_free=dash_free))
-            row.update(band_work(q, ql, t, tl, 256, False))
-            rows["band_score"].append(row)
-    for B, W in ((256, 4096), (32, 19968)):       # realign / global scratch
-        qq, qql, tt, ttl = (x[:B].contiguous() for x in (q, ql, t, tl))
-        row = compare(f"band W={W} B={B} mode=0",
-                      lambda: bd.align_scores_banded(qq, qql, tt, ttl,
-                                                     *scoring, band=W),
-                      lambda: bd.align_scores_banded_plain(
-                          qq, qql, tt, ttl, *scoring, band=W), reps=1)
-        row["smem"] = 12 * W <= build.SMEM_LIMIT
+
+    def plan_of(B, W, want_parents):
+        """Which kernel of csrc/band_score.cu the row ran on."""
+        plan = bd.band_plan(W, B, want_parents)
+        return {"path": plan.path, "lpt": plan.lpt,
+                "reads_per_cta": plan.reads_per_cta}
+
+    def band_row(pairs, W, mode, dash_free, reps):
+        qq, qql, tt, ttl = pairs
+        B = qq.shape[0]
+        row = compare(
+            f"band W={W} B={B} n={qq.shape[1]} mode={mode} "
+            f"dash_free={dash_free}",
+            lambda: bd.align_scores_banded(qq, qql, tt, ttl, *scoring,
+                                           band=W, mode=mode,
+                                           dash_free=dash_free),
+            lambda: bd.align_scores_banded_plain(
+                qq, qql, tt, ttl, *scoring, band=W, mode=mode,
+                dash_free=dash_free), reps=reps)
+        row.update(plan_of(B, W, False))
         row.update(band_work(qq, qql, tt, ttl, W, False))
         rows["band_score"].append(row)
+
+    def first(B):
+        return [x[:B].contiguous() for x in (q, ql, t, tl)]
+
+    # The fused step's shape on the one-warp path, every mode and variant
+    # (the first row is the kernel table's).
+    for mode in (0, 1, 2):
+        for dash_free in (True, False):
+            band_row((q, ql, t, tl), 256, mode, dash_free, 3)
+    # Every dispatch path at the same pairs: one warp per read (W = 128),
+    # several warps (W = 512 ... 4096), the scratch kernel (W = 19968).
+    for B, W in ((256, 128), (256, 512), (256, 1024), (256, 4096),
+                 (32, 19968)):
+        band_row(first(B), W, 0, True, 3 if W <= 1024 else 1)
+    # Small pairs: every mode and variant on the several-warps and the
+    # scratch path, and a B that is no multiple of the reads per CTA.
+    small = pair_inputs(rng, 12, 600, 900, dev)
+    many = pair_inputs(rng, 531, 512, 768, dev)
+    check(bd.band_plan(128, 531, False).reads_per_cta > 1
+          and 531 % bd.band_plan(128, 531, False).reads_per_cta,
+          "531 reads fill whole CTAs: the ragged last CTA is not driven")
+    for mode in (0, 1, 2):
+        for dash_free in (True, False):
+            for W in (512, 19968):
+                band_row(small, W, mode, dash_free, 1)
+        band_row(many, 128, mode, False, 1)
 
     def parents_and_walk(qq, qql, tt, ttl, W, mode, dash_free, reps):
         """K4 on the pairs, then K5 against the plain walk on K4's
@@ -338,6 +373,7 @@ def phase_kernels(dev) -> dict:
                 dash_free=dash_free, want_parents=True),
             reps=reps, err_fn=parents_err(qql, ttl, m_eff), keep=True)
         row["parent_bytes"] = out.parents.numel()
+        row.update(plan_of(B, W, True))
         row.update(band_work(qq, qql, tt, ttl, W, True))
         rows["band_parents"].append(row)
         walk_args = (out.parents, out.goal_i, out.goal_j, out.score, qq, tt,
@@ -356,12 +392,20 @@ def phase_kernels(dev) -> dict:
         rows["walk_parents"].append(wrow)
         return out.score
 
-    # K4 at the fused -c shape in each mode, then one wide realign call.
+    # K4 at the fused -c shape in each mode, then the other widths of the
+    # register paths (the last is a wide realign call).
     for B, W, mode in ((256, 256, 0), (256, 256, 1), (256, 256, 2),
+                       (256, 128, 0), (256, 512, 0), (128, 1024, 0),
                        (32, 4096, 0)):
-        parents_and_walk(*(x[:B].contiguous() for x in (q, ql, t, tl)), W,
-                         mode, True, 3 if W <= 256 else 1)
+        parents_and_walk(*first(B), W, mode, True, 3 if W <= 256 else 1)
     del q, ql, t, tl
+    # Small pairs: every mode and variant on the several-warps and the
+    # scratch path; the ragged last CTA of the one-warp path.
+    for mode in (0, 1, 2):
+        for dash_free in (True, False):
+            for W in (512, 19968):
+                parents_and_walk(*small, W, mode, dash_free, 1)
+        parents_and_walk(*many, 128, mode, False, 1)
     # The staged path's -c shape: a band that covers the whole matrix (the
     # full DP), the general variant ('-' bytes present), every mode.
     q, ql, t, tl = pair_inputs(rng, 32, 2048, 2304, dev)
@@ -395,21 +439,80 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
+def phase_lpt_trial(dev) -> dict:
+    """K2 and K4 times at the phase-1 pairs for every choice of lanes per
+    thread (LPT) on both register paths, global / local / semiGlobal,
+    dash_free: the measurement behind ops/band.WARP_LPT and WARPS_LPT.
+    Needs the trial instantiations (BIOINFO1_BAND_LPT_TRIAL, set by
+    --lpt-trial before the build) and overrides the plan's tables for the
+    time of each row; no result is compared here (phase 1 does that for
+    the plan that is kept)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    rng = np.random.default_rng(1)
+    q, ql, t, tl = pair_inputs(rng, 768, 4096, 6144, dev)
+    kept = bd.WARP_LPT, bd.WARPS_LPT
+    rows = []
+
+    def ms(pairs, W, mode, parents, reps):
+        def run():
+            return bd.align_scores_banded(*pairs, 1, -1, -1, band=W,
+                                          mode=mode, dash_free=True,
+                                          want_parents=parents)
+        run(), run()
+        torch.cuda.synchronize()
+        return cuda_ms(run, reps)
+
+    try:
+        for W, shapes, plans in (
+                (256, ((256, False), (256, True), (768, False), (768, True)),
+                 (({256: 8}, 8), ({}, 8), ({}, 4), ({}, 16))),
+                (512, ((256, False), (256, True)),
+                 (({}, 8), ({}, 4), ({}, 16), ({512: 16}, 8))),
+                (1024, ((256, False), (256, True)),
+                 (({}, 8), ({}, 4), ({}, 16))),
+                (4096, ((256, False), (32, True)),
+                 (({}, 8), ({}, 4), ({}, 16)))):
+            for warp_lpt, warps_lpt in plans:
+                bd.WARP_LPT, bd.WARPS_LPT = warp_lpt, warps_lpt
+                for B, parents in shapes:
+                    pairs = [x[:B].contiguous() for x in (q, ql, t, tl)]
+                    plan = bd.band_plan(W, B, parents)
+                    rows.append({
+                        "W": W, "B": B, "parents": parents,
+                        "path": plan.path, "lpt": plan.lpt,
+                        "threads_per_read": plan.threads_per_read,
+                        "ms_mode012": [ms(pairs, W, mode, parents,
+                                          3 if W <= 1024 else 1)
+                                       for mode in (0, 1, 2)]})
+    finally:
+        bd.WARP_LPT, bd.WARPS_LPT = kept
+    return {"phase": "1t", "rows": rows}
+
+
 def issued_per_unit(listing: str) -> dict:
     """Integer instructions each kernel issues per unit of work, counted in
-    its own SASS: the integer instructions of its largest innermost loop
-    (the mean of the two parity loops for the banded kernels), per pair
-    for K1, per swept lane for K2-K4, per trip (its add and max
-    instructions) for K6.  Reported beside NEEDED_OPS; no bound uses it."""
+    its own SASS: the integer instructions of its largest innermost loop,
+    per pair for K1, per swept lane for K3, per trip (its add and max
+    instructions) for K6.  For K2 and K4 the kernel that serves the
+    table's row (W = 256, global, dash_free): the integer instructions of
+    its interior pair loop over the 2 * LPT cells of a trip.  Reported
+    beside NEEDED_OPS; no bound uses it."""
     import sass_census as sass
+    from bioinfo1_tpu_torch.ops import band as bd
 
-    def ints(needle, n=1):
-        loops = sass.cell_loops(listing, needle)[:n]
-        return sum(r["by_kind"].get("int", 0) for r in loops) / len(loops)
+    def ints(needle):
+        return sass.cell_loops(listing, needle)[0]["by_kind"].get("int", 0)
+
+    def band(parents):
+        plan = bd.band_plan(256, 256, parents)
+        needle = sass.band_reg_needle(parents, True, 0, plan.lpt,
+                                      plan.path == "warps")
+        return sass.band_interior_loop(listing, needle,
+                                       plan.lpt)["int_per_cell"]
 
     return {"lis_chain": ints("lis_chain_kernel"),
-            "band_score": ints("band_score_kernelILb0E", 2),
-            "band_parents": ints("band_score_kernelILb1E", 2),
+            "band_score": band(False),
+            "band_parents": band(True),
             "full_score": ints("full_score_kernel"),
             "walk_parents": 0,
             "int32_probe":
@@ -781,6 +884,9 @@ def profile_cell(genome: str, recs, cfg) -> dict:
 
 def main() -> int:
     profile_map = "--profile-map" in sys.argv[1:]
+    lpt_trial = "--lpt-trial" in sys.argv[1:]
+    if lpt_trial:
+        os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
@@ -804,12 +910,19 @@ def main() -> int:
     build.library()
     build_s = time.perf_counter() - t0
     with open(build.NVCC_LOG) as fh:
-        ptxas = [line.strip() for line in fh
-                 if "registers" in line or "Compiling entry" in line]
+        log = fh.read().splitlines()
+    ptxas = [line.strip() for line in log
+             if "registers" in line or "Compiling entry" in line]
+    spills = [line.strip() for line in log if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
     emit({"phase": 0, "device": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "nvcc_s": built_s, "ptxas": ptxas})
+          "build_s": build_s, "nvcc_s": built_s, "spills": spills,
+          "ptxas": ptxas})
 
+    if lpt_trial:
+        emit(phase_lpt_trial(dev))
+        return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})
     listing = build.sass()

@@ -16,7 +16,13 @@ A listing holds one ``Function : <mangled name>`` section per kernel; an
 instruction line reads ``/*0120*/  @!P0 VIMNMX R7, R8, R7, !PT ;`` (a second
 line with only the encoding follows and is skipped).  A loop is a branch
 to a lower address; its body is every instruction from the target to the
-branch.
+branch.  A shuffle under a mask the compiler cannot prove full gets an
+out-of-line handler (reached by ``BRA.DIV``, placed after the kernel's
+code) that branches back into the code: those branches are no loops.
+
+The banded register kernels (csrc/band_score.cu ``band_reg_kernel``) hold
+two pair loops, border and interior; ``band_interior_loop`` finds the
+interior one, whose trip computes 2 * LPT cells.
 """
 
 from __future__ import annotations
@@ -93,13 +99,24 @@ def loops(instrs: List[Instr]) -> List[Tuple[int, int]]:
     branch back to the first.  A branch to itself (the trap after EXIT) is
     no loop."""
     by_addr = {ins.addr: k for k, ins in enumerate(instrs)}
+
+    def target(ins):
+        m = re.search(r"0x([0-9a-f]+)", ins.operands)
+        return int(m.group(1), 16) if m else None
+
+    # Out-of-line handlers of divergent shuffles start at the lowest
+    # BRA.DIV target; a branch back from there is a return, not a loop.
+    handlers = min((target(i) for i in instrs if i.full_op == "BRA.DIV"
+                    and target(i) is not None), default=None)
     out = []
     for k, ins in enumerate(instrs):
-        if ins.op != "BRA":
+        if ins.op != "BRA" or ins.full_op == "BRA.DIV":
             continue
-        m = re.search(r"0x([0-9a-f]+)", ins.operands)
-        if m and int(m.group(1), 16) < ins.addr:
-            out.append((by_addr[int(m.group(1), 16)], k))
+        if handlers is not None and ins.addr >= handlers:
+            continue
+        t = target(ins)
+        if t is not None and t < ins.addr:
+            out.append((by_addr[t], k))
     return out
 
 
@@ -127,6 +144,29 @@ def cell_loops(listing: str, needle: str) -> List[dict]:
     instrs = function(listing, needle)
     rows = [census(instrs, span) for span in innermost(instrs)]
     return sorted(rows, key=lambda r: -r["instructions"])
+
+
+def band_reg_needle(parents: bool, dash_free: bool, mode: int, lpt: int,
+                    multi: bool) -> str:
+    """The part of a ``band_reg_kernel`` instantiation's mangled name that
+    tells it from the others (template arguments kParents, kDashFree,
+    kMode, LPT, kMulti)."""
+    return (f"band_reg_kernelILb{int(parents)}ELb{int(dash_free)}E"
+            f"Li{mode}ELi{lpt}ELb{int(multi)}E")
+
+
+def band_interior_loop(listing: str, needle: str, lpt: int) -> dict:
+    """Census of a banded register kernel's interior pair loop: of its two
+    largest innermost loops (border pairs, interior pairs) the smaller
+    one.  A trip is one even and one odd diagonal of ``lpt`` lanes, so
+    ``int_per_cell`` = integer instructions / (2 * lpt)."""
+    two = cell_loops(listing, needle)[:2]
+    if len(two) < 2:
+        raise KeyError(f"{needle!r}: fewer than two pair loops")
+    row = dict(two[1])
+    row["cells_per_trip"] = 2 * lpt
+    row["int_per_cell"] = row["by_kind"].get("int", 0) / (2 * lpt)
+    return row
 
 
 def main() -> int:

@@ -164,3 +164,64 @@ def test_sass_reader_finds_loops_and_counts():
         sass.function(LISTING, "missing")
     with pytest.raises(KeyError):
         sass.function(LISTING, "foo")           # two kernels match
+
+
+def _sass_lines(rows):
+    """Listing text from (address, predicate, instruction) rows."""
+    return "".join(f"        /*{addr:04x}*/ {pred:>16} {ins} ;\n"
+                   for addr, pred, ins in rows)
+
+
+# A register band kernel in miniature: a border loop, an interior loop, a
+# shuffle under a run-time mask whose out-of-line handler (after EXIT)
+# branches back into the interior loop.
+BAND_LISTING = (
+    "\t\tFunction : _ZN3foo15band_reg_kernelILb0ELb1ELi0ELi8ELb0EEEvNS_8BandArgsE\n"
+    + _sass_lines(
+        [(0x0000, "", "S2R R0, SR_TID.X")]
+        # border loop 0x10-0x70: 7 instructions, 5 integer
+        + [(0x0010 + 0x10 * k, "", "VIMNMX R7, R8, R7, !PT") for k in range(5)]
+        + [(0x0060, "", "ISETP.GE.AND P0, PT, R3, R4, PT"),
+           (0x0070, "@!P0", "BRA 0x10")]
+        # interior loop 0x80-0xd0: 6 instructions, 3 integer
+        + [(0x0080, "", "BRA.DIV UR7, 0x100"),
+           (0x0090, "", "SHFL.UP PT, R27, R21, 0x1, RZ"),
+           (0x00a0, "", "VIADDMNMX R4, R27, R4, R28, !PT"),
+           (0x00b0, "", "VIMNMX R7, R8, R7, !PT"),
+           (0x00c0, "", "ISETP.GE.AND P0, PT, R3, R4, PT"),
+           (0x00d0, "@!P0", "BRA 0x80"),
+           (0x00e0, "", "EXIT"),
+           (0x00f0, "", "BRA 0xf0"),
+           # the handler
+           (0x0100, "", "WARPSYNC.COLLECTIVE R27, 0x130"),
+           (0x0110, "", "SHFL.UP P1, R27, R21, R29, R28"),
+           (0x0120, "", "ENDCOLLECTIVE"),
+           (0x0130, "", "BRA 0xa0")])
+    + "\t\tFunction : _ZN3foo15band_reg_kernelILb1ELb1ELi0ELi8ELb0EEEvNS_8BandArgsE\n"
+    + _sass_lines([(0x0000, "", "EXIT")]))
+
+
+def test_sass_reader_skips_divergent_shuffle_handlers():
+    needle = sass.band_reg_needle(False, True, 0, 8, False)
+    assert needle == "band_reg_kernelILb0ELb1ELi0ELi8ELb0E"
+    instrs = sass.function(BAND_LISTING, needle)
+    # The handler's branch back to 0xa0 is a return, not a loop.
+    assert [(instrs[a].addr, instrs[b].addr) for a, b in sass.loops(instrs)] \
+        == [(0x10, 0x70), (0x80, 0xd0)]
+    border, interior = sass.cell_loops(BAND_LISTING, needle)
+    assert border["instructions"] == 7 and interior["instructions"] == 6
+
+
+@pytest.mark.parametrize("lpt", [4, 8, 16])
+def test_band_interior_loop_counts_per_cell(lpt):
+    needle = sass.band_reg_needle(False, True, 0, 8, False)
+    row = sass.band_interior_loop(BAND_LISTING, needle, lpt)
+    assert (row["first"], row["last"]) == ("0x0080", "0x00d0")
+    assert row["cells_per_trip"] == 2 * lpt
+    # VIADDMNMX, VIMNMX and ISETP are integer; SHFL and the branches not.
+    assert row["by_kind"]["int"] == 3
+    assert row["int_per_cell"] == 3 / (2 * lpt)
+    # A kernel without both pair loops is refused, not guessed at.
+    with pytest.raises(KeyError):
+        sass.band_interior_loop(
+            BAND_LISTING, sass.band_reg_needle(True, True, 0, 8, False), lpt)

@@ -13,6 +13,7 @@ certificate passes, or on all reads where both walks get the same parents.
 """
 
 import io
+import threading
 
 import numpy as np
 import pytest
@@ -68,6 +69,38 @@ def test_lis_chain_kernel_matches_plain(dev, R, N):
     _same(ch.lis_chain(f, r, cnt), ch.lis_chain_plain(f, r, cnt))
 
 
+def test_lis_chain_kernel_from_several_threads(dev):
+    """The mapper launches K1 from several worker threads at different match
+    budgets: a thread's shared-memory opt-in must hold when another thread
+    opts the same kernel in for less just before the launch."""
+    jobs = []
+    for R, N in ((4, 128), (2, 16384), (4, 256), (2, 12288)):
+        f, r, cnt = _chain_rows(np.random.default_rng(N), R, N)
+        cnt = np.minimum(cnt, 24)       # short rows: the launches dominate
+        f, r, cnt = (torch.from_numpy(x).to(dev) for x in (f, r, cnt))
+        jobs.append((f, r, cnt, ch.lis_chain_plain(f, r, cnt)))
+    torch.cuda.synchronize(dev)
+    start = threading.Barrier(len(jobs))
+    errors = []
+
+    def run(f, r, cnt, want):
+        try:
+            start.wait()
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for _ in range(4000):
+                    got = ch.lis_chain(f, r, cnt)
+                _same(got, want)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+
+
 def _pairs(rng, B, n, m, dev):
     qa = np.zeros((B, n), np.uint8)
     ta = np.zeros((B, m), np.uint8)
@@ -87,7 +120,10 @@ def _pairs(rng, B, n, m, dev):
     return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
 
 
-@pytest.mark.parametrize("band", [128, 256, 4096, 19968])
+BANDS = [128, 256, 512, 1024, 4096, 19968]   # every path of band_plan
+
+
+@pytest.mark.parametrize("band", BANDS)
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_band_kernel_matches_plain(dev, mode, band):
     q, ql, t, tl = _pairs(np.random.default_rng(mode), 12, 600, 900, dev)
@@ -99,7 +135,7 @@ def test_band_kernel_matches_plain(dev, mode, band):
                                            dash_free=dash_free))
 
 
-@pytest.mark.parametrize("band", [128, 256, 4096, 19968])
+@pytest.mark.parametrize("band", BANDS)
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_band_parents_kernel_matches_plain(dev, mode, band):
     q, ql, t, tl = _pairs(np.random.default_rng(10 + mode), 12, 600, 900,
@@ -121,6 +157,75 @@ def test_band_parents_kernel_matches_plain(dev, mode, band):
                      1, -1, -1, mode)
         assert torch.equal(tr.walk_parents(*walk_args),
                            tr.walk_parents_plain(*walk_args))
+
+
+def _tie_pairs(rng, B, n, m, dash, dev):
+    """Tie-heavy pairs over a two-letter alphabet, NUL-padded: 10% of the
+    target bytes flipped, optional '-' bytes, and rows with an empty
+    query, an empty target, both empty, a 1-tall and a 1-wide matrix and
+    the full widths (all of them shorter than most bands)."""
+    letters = np.frombuffer(b"AC", np.uint8)
+    qa = np.zeros((B, n), np.uint8)
+    ta = np.zeros((B, m), np.uint8)
+    ql = rng.integers(1, n + 1, B).astype(np.int32)
+    tl = rng.integers(1, m + 1, B).astype(np.int32)
+    special = [(n, m), (0, 0), (1, m), (n, 1), (0, 5), (7, 0)]
+    for b, (x, y) in enumerate(special[:B]):
+        ql[b], tl[b] = x, y
+    for b in range(B):
+        base = letters[rng.integers(0, 2, max(ql[b], tl[b]) + 1)]
+        qa[b, :ql[b]] = base[:ql[b]]
+        tgt = base[:tl[b]].copy()
+        flip = rng.random(tl[b]) < 0.1
+        tgt[flip] = letters[rng.integers(0, 2, int(flip.sum()))]
+        ta[b, :tl[b]] = tgt
+        if dash and b % 2 == 0 and ql[b] and tl[b]:
+            qa[b, rng.integers(0, ql[b], 2)] = ord("-")
+            ta[b, rng.integers(0, tl[b], 2)] = ord("-")
+    return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("band", [128, 256, 640, 4224])
+@pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1), (1, -1, -1)])
+def test_band_kernels_on_tie_heavy_pairs(dev, scoring, band, B):
+    """Local goal ties and semiGlobal rim ties: a per-thread best reduced
+    once must pick what the per-diagonal rules pick.  W = 640 runs a short
+    last warp."""
+    rng = np.random.default_rng(100 * band + B)
+    m_eff = bd.band_shapes(500, 800, band)[2]
+    for dash in (False, True):
+        q, ql, t, tl = _tie_pairs(rng, B, 500, 800, dash, dev)
+        args = (q, ql, t, tl, *scoring)
+        for mode in (0, 1, 2):
+            for dash_free in ((False,) if dash else (False, True)):
+                kw = dict(band=band, mode=mode, dash_free=dash_free)
+                _same(bd.align_scores_banded(*args, **kw),
+                      bd.align_scores_banded_plain(*args, **kw))
+                got = bd.align_scores_banded(*args, **kw, want_parents=True)
+                want = bd.align_scores_banded_plain(*args, **kw,
+                                                    want_parents=True)
+                for f in ("score", "goal_i", "goal_j"):
+                    assert torch.equal(getattr(got, f), getattr(want, f)), \
+                        (f, mode, dash, dash_free)
+                assert torch.equal(
+                    bd.parent_cells(got.parents, ql, tl, m_eff),
+                    bd.parent_cells(want.parents, ql, tl, m_eff)), \
+                    (mode, dash, dash_free)
+
+
+def test_band_kernel_ragged_last_cta(dev):
+    """More one-warp reads than fill whole CTAs: the last CTA's spare
+    warps leave, every read is served."""
+    B = 2 * bd.SM_COUNT * 2 + 3
+    assert bd.band_plan(128, B, False).reads_per_cta == 2
+    q, ql, t, tl = _tie_pairs(np.random.default_rng(9), B, 200, 300, True,
+                              dev)
+    for mode in (0, 1, 2):
+        _same(bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=128,
+                                     mode=mode),
+              bd.align_scores_banded_plain(q, ql, t, tl, 1, -1, -1,
+                                           band=128, mode=mode))
 
 
 @pytest.mark.parametrize("scoring", [(1, -1, 1), (1, -1, 0)])
