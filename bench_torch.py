@@ -485,8 +485,7 @@ def measure_sol(sizes: Sizes = FULL,
     # 2 * LPT cells a trip.
     plan = bd.band_plan(Wf, B, False)
     loop = sass.band_interior_loop(
-        listing, sass.band_reg_needle(False, True, 0, plan.lpt,
-                                      plan.path == "warps"), plan.lpt)
+        listing, sass.plan_needle(plan, False), plan.lpt)
     ops_per_cell = loop["int_per_cell"]
     out.update(
         int32_tops=round(src_rate / 1e12, 3),

@@ -36,6 +36,15 @@
 //     __syncthreads per diagonal orders them.  W / LPT need not be a
 //     multiple of 32: the last warp runs short and shuffles under its own
 //     mask.
+//   - "cluster" path (kRegMaxW < W <= kRegMaxW * kMaxCluster): the same
+//     threads over the C CTAs of a thread-block cluster, one cluster per
+//     read, T = W / (LPT * C) threads each; thread t of the CTA of cluster
+//     rank r owns lanes [(r*T + t)*LPT, +LPT).  Each CTA runs the "warps"
+//     body; at a CTA boundary the edge values go to the neighbour CTA's
+//     arrays by a store into its shared memory (distributed shared memory)
+//     before the barrier, and one cluster barrier per diagonal (release /
+//     acquire) takes the place of the block sync.  Goals reduce per CTA,
+//     then across ranks into rank 0, after the sweep.
 // Query and target bytes are shift registers: from an even to an odd
 // diagonal every lane's j grows by one and its target byte becomes the old
 // byte of lane l + 1; from odd to even its i grows by one and its query
@@ -72,9 +81,13 @@
 // the interior loop's SASS for sm_90a holds about 7 integer instructions
 // per cell for K2 and 15 for K4); with few reads also one warp issuing
 // alone, about 445 cycles per pair of diagonals at LPT 8 on an H100; the
-// "warps" path adds one block sync per diagonal.
+// "warps" path adds one block sync per diagonal, the "cluster" path one
+// cluster barrier per diagonal, which sets its pace: at the 50 kb reads'
+// band (7 CTAs of 448 threads) a diagonal takes ~0.9 us on an H100, and
+// K4, which issues twice K2's instructions per cell, takes only ~16% more.
 //
-// Scratch path, W > kRegMaxW (band_scratch_kernel): one CTA per read, the
+// Scratch path, W > kRegMaxW * kMaxCluster (band_scratch_kernel; any W
+// when called directly): one CTA per read, the
 // three diagonals in shared memory (12*W bytes, plus K4's W accumulator
 // bytes) while that fits, else in a per-read global scratch; each lane
 // reads its bytes by index and evaluates every border condition; one
@@ -82,15 +95,20 @@
 // argmax.  Bound by that sync and by ~63 (K4: 77) integer instructions per
 // lane in its SASS for sm_90a.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kNeg = -(1 << 30);  // pallas_band._NEG
 constexpr unsigned char kDash = 45;
 constexpr unsigned kDashWord = 0x2d2d2d2du;
 constexpr int kRegMaxW = 4096;      // widest band of the register paths
 constexpr int kMaxReadsPerCta = 4;  // "warp" path
+constexpr int kMaxCluster = 8;      // "cluster" path: the portable size
 
 struct BandArgs {
   const unsigned char* q;
@@ -180,24 +198,48 @@ __device__ __forceinline__ void group_best(int& c, int& i, int& j,
 struct Place {
   ReadBytes rd;
   unsigned mask;  // the threads of this warp
-  int warp, nwarps;
+  int warp, nwarps;    // in this CTA
+  int rank, nranks;    // this CTA in the read's cluster ("cluster" path)
   bool first, last;    // of the read's group: owns lane 0 / lane W - 1
   bool wfirst, wlast;  // of its warp
   int b, B, W, half, base, ql, tl, d_stop;
+  // "cluster" path: where this warp's edge values go - the slots of
+  // Edges below, in this CTA or, at a CTA boundary, in the neighbour's.
+  int* ev_out;
+  unsigned* t_out;
+  int* od_out;
+  unsigned* q_out;
 };
 
-// Warp edges of the "warps" path: the edge scores of the newest odd and
-// even diagonal, the edge query and target bytes, and the goal reduction.
+// Warp edges of the "warps" and "cluster" paths: the edge scores of the
+// newest odd and even diagonal, the edge query and target bytes, and the
+// goal reductions.  Warp w writes ev[w] and t[w] (its first lane) for warp
+// w - 1, and od[w + 1] and q[w + 1] (its last lane) for warp w + 1; slot
+// nwarps of ev / t and slot 0 of od / q are the next and the previous
+// CTA's on the "cluster" path.  rgoal holds each rank's best in rank 0.
 struct Edges {
-  int od[32], ev[32];
-  unsigned q[32], t[32];
+  int od[33], ev[33];
+  unsigned q[33], t[33];
   int goal[32][3];
+  int rgoal[2][kMaxCluster][3];
 };
+
+// The barrier that orders the edge slots: the block's, or the cluster's
+// (barrier.cluster.arrive.release + wait.acquire).
+template <bool kCluster>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
 
 // One thread's LPT lanes: the two newest diagonals, the lanes' bytes and
 // parent accumulators packed four to a word, and the goal trackers of
 // kMode (0 global, 1 local, 2 semiGlobal).
-template <bool kParents, bool kDashFree, int kMode, int LPT, bool kMulti>
+template <bool kParents, bool kDashFree, int kMode, int LPT, bool kMulti,
+          bool kCluster>
 struct Lanes {
   static constexpr int NW = LPT / 4;
   int ev[LPT], od[LPT];  // newest even / odd diagonal
@@ -324,7 +366,7 @@ struct Lanes {
   template <bool kBorder>
   __device__ __forceinline__ void even(const Place& p, Edges& e, int d) {
     int edge = __shfl_up_sync(p.mask, od[LPT - 1], 1);
-    if (p.wfirst) edge = (kMulti && p.warp > 0) ? e.od[p.warp - 1] : kNeg;
+    if (p.wfirst) edge = (kMulti && !p.first) ? e.od[p.warp] : kNeg;
     step<false, kBorder>(p, edge, d);
     track(p, ev, d);
   }
@@ -342,16 +384,20 @@ struct Lanes {
     even<kBorder>(p, e, d);
     if constexpr (kMulti) {
       if (p.wfirst) {
-        e.ev[p.warp] = ev[0];
-        e.t[p.warp] = tw[0] & 0xffu;
+        if constexpr (kCluster) {
+          *p.ev_out = ev[0];
+          *p.t_out = tw[0] & 0xffu;
+        } else {
+          e.ev[p.warp] = ev[0];
+          e.t[p.warp] = tw[0] & 0xffu;
+        }
       }
-      __syncthreads();
+      group_sync<kCluster>();
     }
 
     // Target bytes move down one lane for the odd diagonal.
     unsigned carry = __shfl_down_sync(p.mask, tw[0] & 0xffu, 1);
-    if (p.wlast)
-      carry = (kMulti && p.warp < p.nwarps - 1) ? e.t[p.warp + 1] : t_in;
+    if (p.wlast) carry = (kMulti && !p.last) ? e.t[p.warp + 1] : t_in;
 #pragma unroll
     for (int x = 0; x < NW - 1; ++x) tw[x] = (tw[x] >> 8) | (tw[x + 1] << 24);
     tw[NW - 1] = (tw[NW - 1] >> 8) | (carry << 24);
@@ -360,8 +406,7 @@ struct Lanes {
     // thread above.
     const int d1 = d + 1;
     int edge = __shfl_down_sync(p.mask, ev[0], 1);
-    if (p.wlast)
-      edge = (kMulti && p.warp < p.nwarps - 1) ? e.ev[p.warp + 1] : kNeg;
+    if (p.wlast) edge = (kMulti && !p.last) ? e.ev[p.warp + 1] : kNeg;
     step<true, kBorder>(p, edge, d1);
     track(p, od, d1);
     if constexpr (kParents) {
@@ -369,42 +414,83 @@ struct Lanes {
     }
     if constexpr (kMulti) {
       if (p.wlast) {
-        e.od[p.warp] = od[LPT - 1];
-        e.q[p.warp] = qw[NW - 1] >> 24;
+        if constexpr (kCluster) {
+          *p.od_out = od[LPT - 1];
+          *p.q_out = qw[NW - 1] >> 24;
+        } else {
+          e.od[p.warp + 1] = od[LPT - 1];
+          e.q[p.warp + 1] = qw[NW - 1] >> 24;
+        }
       }
-      __syncthreads();
+      group_sync<kCluster>();
     }
 
     // Query bytes move up one lane for the next even diagonal.
     carry = __shfl_up_sync(p.mask, qw[NW - 1] >> 24, 1);
-    if (p.wfirst) carry = (kMulti && p.warp > 0) ? e.q[p.warp - 1] : q_in;
+    if (p.wfirst) carry = (kMulti && !p.first) ? e.q[p.warp] : q_in;
 #pragma unroll
     for (int x = NW - 1; x > 0; --x) qw[x] = (qw[x] << 8) | (qw[x - 1] >> 24);
     qw[0] = (qw[0] << 8) | carry;
   }
 };
 
-// K4 on the "warps" path asks for one resident CTA only: with no stated
-// minimum ptxas caps it at 64 registers and spills.
-template <bool kParents, bool kDashFree, int kMode, int LPT, bool kMulti>
+// Rank 0 of a read's cluster takes the best (c, i, j) of every rank from
+// slot k of its rgoal (each rank's thread 0 stored there before the
+// barrier that precedes this call).
+__device__ __forceinline__ void take_rank_best(const Place& p, const Edges& e,
+                                               int k, int& c, int& i,
+                                               int& j) {
+  for (int r = 1; r < p.nranks; ++r) {
+    const int* g = e.rgoal[k][r];
+    if (goal_better(g[0], g[1], g[2], c, i, j)) {
+      c = g[0];
+      i = g[1];
+      j = g[2];
+    }
+  }
+}
+
+// Thread 0 of a CTA stores its CTA's best into slot k of rank 0's rgoal.
+__device__ __forceinline__ void post_rank_best(const Place& p, Edges& e,
+                                               int k, int c, int i, int j) {
+  if (threadIdx.x == 0) {
+    int* g = cg::this_cluster().map_shared_rank(&e.rgoal[k][p.rank][0], 0);
+    g[0] = c;
+    g[1] = i;
+    g[2] = j;
+  }
+}
+
+// K4 on the "warps" and "cluster" paths asks for one resident CTA only:
+// with no stated minimum ptxas caps it at 64 registers and spills.
+template <bool kParents, bool kDashFree, int kMode, int LPT, bool kMulti,
+          bool kCluster>
 __global__ void __launch_bounds__(kMulti ? kRegMaxW / LPT
                                          : 32 * kMaxReadsPerCta,
                                   (kParents && kMulti) ? 1 : 0)
 band_reg_kernel(BandArgs a) {
+  static_assert(kMulti || !kCluster, "a cluster runs the warps body");
   constexpr int NW = LPT / 4;
   __shared__ Edges e;
   const int lane = threadIdx.x & 31;
   Place p;
   p.warp = kMulti ? threadIdx.x >> 5 : 0;
-  p.b = kMulti ? blockIdx.x
+  p.rank = 0;
+  p.nranks = 1;
+  if constexpr (kCluster) {
+    p.rank = static_cast<int>(cg::this_cluster().block_rank());
+    p.nranks = static_cast<int>(cg::this_cluster().num_blocks());
+  }
+  p.b = kMulti ? blockIdx.x / p.nranks
                : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (!kMulti && p.b >= a.B) return;  // no block sync on this path
   p.W = a.W;
   p.B = a.B;
   const int nthr = p.W / LPT;  // threads of this read
-  const int t = kMulti ? threadIdx.x : lane;
-  p.nwarps = (nthr + 31) >> 5;
-  const int cnt = min(32, nthr - 32 * p.warp);  // threads of this warp
+  const int cta_thr = kMulti ? static_cast<int>(blockDim.x) : 32;
+  const int t = kMulti ? p.rank * cta_thr + threadIdx.x : lane;
+  p.nwarps = (cta_thr + 31) >> 5;
+  const int cnt = min(32, cta_thr - 32 * p.warp);  // threads of this warp
   // One warp per read is always a full warp: a constant mask keeps the
   // compiler from guarding every shuffle against divergence.
   p.mask = (!kMulti || cnt == 32) ? 0xffffffffu : (1u << cnt) - 1u;
@@ -413,6 +499,23 @@ band_reg_kernel(BandArgs a) {
   p.wfirst = lane == 0;
   p.wlast = lane == cnt - 1;
   p.base = t * LPT;
+  if constexpr (kCluster) {
+    // A CTA's first thread feeds the previous CTA's last warp, its last
+    // thread the next CTA's first warp.
+    cg::cluster_group cl = cg::this_cluster();
+    p.ev_out = &e.ev[p.warp];
+    p.t_out = &e.t[p.warp];
+    p.od_out = &e.od[p.warp + 1];
+    p.q_out = &e.q[p.warp + 1];
+    if (threadIdx.x == 0 && p.rank > 0) {
+      p.ev_out = cl.map_shared_rank(&e.ev[p.nwarps], p.rank - 1);
+      p.t_out = cl.map_shared_rank(&e.t[p.nwarps], p.rank - 1);
+    }
+    if (threadIdx.x == cta_thr - 1 && p.rank < p.nranks - 1) {
+      p.od_out = cl.map_shared_rank(&e.od[0], p.rank + 1);
+      p.q_out = cl.map_shared_rank(&e.q[0], p.rank + 1);
+    }
+  }
   p.half = p.W >> 1;
   p.rd.qr = a.q + static_cast<size_t>(p.b) * a.n;
   p.rd.tr = a.t + static_cast<size_t>(p.b) * a.m;
@@ -425,7 +528,7 @@ band_reg_kernel(BandArgs a) {
   p.d_stop = min(p.ql + p.tl, a.n_steps + 1);
   const int W = p.W, B = p.B, b = p.b, base = p.base;
 
-  Lanes<kParents, kDashFree, kMode, LPT, kMulti> s;
+  Lanes<kParents, kDashFree, kMode, LPT, kMulti, kCluster> s;
   s.match = a.match;
   s.mismatch = a.mismatch;
   s.gap = a.gap;
@@ -451,13 +554,22 @@ band_reg_kernel(BandArgs a) {
     }
   }
   if constexpr (kMulti) {
-    if (p.wlast) e.od[p.warp] = s.od[LPT - 1];
-    __syncthreads();
+    // No CTA writes into another's shared memory before all have started.
+    if constexpr (kCluster) group_sync<true>();
+    if (p.wlast) {
+      if constexpr (kCluster) {
+        *p.od_out = s.od[LPT - 1];
+      } else {
+        e.od[p.warp + 1] = s.od[LPT - 1];
+      }
+    }
+    group_sync<kCluster>();
   }
 
   // Every thread of a warp runs every diagonal up to d_stop (uniform over
-  // the read's group) and reaches every shuffle and block sync.  Border
-  // pairs (d < W + 2), interior pairs, then a last even diagonal alone.
+  // the read's group) and reaches every shuffle, block sync and cluster
+  // barrier.  Border pairs (d < W + 2), interior pairs, then a last even
+  // diagonal alone.
   int d = 2;
 #pragma unroll 1
   for (; d < W + 2 && d < p.d_stop; d += 2) s.template pair<true>(p, e, a.par, d);
@@ -483,6 +595,10 @@ band_reg_kernel(BandArgs a) {
       out[B + b] = p.ql;
       out[2 * B + b] = p.tl;
     }
+    // Every store into a neighbour's shared memory came before a barrier
+    // of the sweep; this last one keeps the rule of the other modes: no
+    // CTA leaves while another may still touch its shared memory.
+    if constexpr (kCluster) group_sync<true>();
   } else if constexpr (kMode == 1) {
     int c = kNeg, gi = 0, gj = 0;
 #pragma unroll
@@ -497,6 +613,11 @@ band_reg_kernel(BandArgs a) {
     }
     group_best<kMulti>(c, gi, gj, p.mask, lane, cnt, p.warp, p.nwarps,
                        e.goal);
+    if constexpr (kCluster) {
+      post_rank_best(p, e, 0, c, gi, gj);
+      group_sync<true>();  // also the last barrier: no remote access after
+      if (p.first) take_rank_best(p, e, 0, c, gi, gj);
+    }
     if (p.first) {
       const bool hit = c > kNeg;
       out[b] = hit ? c : 0;
@@ -510,6 +631,15 @@ band_reg_kernel(BandArgs a) {
     int rc = s.rc, rj = s.rj, z1 = 0;
     group_best<kMulti>(rc, rj, z1, p.mask, lane, cnt, p.warp, p.nwarps,
                        e.goal);
+    if constexpr (kCluster) {
+      post_rank_best(p, e, 0, cc, ci, z0);
+      post_rank_best(p, e, 1, rc, rj, z1);
+      group_sync<true>();  // also the last barrier: no remote access after
+      if (p.first) {
+        take_rank_best(p, e, 0, cc, ci, z0);
+        take_rank_best(p, e, 1, rc, rj, z1);
+      }
+    }
     if (p.first) {
       const bool row_wins = rc > cc;
       out[b] = row_wins ? rc : cc;
@@ -702,7 +832,66 @@ __global__ void band_scratch_kernel(
 
 // ---- launch ---------------------------------------------------------------
 
-enum BandPath { kPathWarp = 0, kPathWarps = 1, kPathScratch = 2 };
+enum BandPath {
+  kPathWarp = 0,
+  kPathWarps = 1,
+  kPathScratch = 2,
+  kPathCluster = 3
+};
+
+using RegKernel = void (*)(BandArgs);
+
+template <bool kParents, bool kDashFree, int LPT, bool kMulti, bool kCluster>
+RegKernel reg_kernel(int mode) {
+  if (mode == 0) return band_reg_kernel<kParents, kDashFree, 0, LPT, kMulti,
+                                        kCluster>;
+  if (mode == 1) return band_reg_kernel<kParents, kDashFree, 1, LPT, kMulti,
+                                        kCluster>;
+  return band_reg_kernel<kParents, kDashFree, 2, LPT, kMulti, kCluster>;
+}
+
+// The launch of the "cluster" path: B clusters of `cluster` CTAs of
+// W / (LPT * cluster) threads.  A cluster the card cannot hold is an error
+// (cudaErrorLaunchOutOfResources), never a reason to take another path.
+template <int LPT>
+cudaError_t cluster_config(const BandArgs& a, int cluster,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  const int nthr = a.W / LPT;
+  if (a.W % LPT != 0 || cluster < 2 || cluster > kMaxCluster ||
+      nthr % cluster != 0 || nthr / cluster > kRegMaxW / LPT || a.mode < 0 ||
+      a.mode > 2)
+    return cudaErrorInvalidValue;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(a.B * cluster), 1, 1);
+  cfg->blockDim = dim3(static_cast<unsigned>(nthr / cluster), 1, 1);
+  cfg->dynamicSmemBytes = 0;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <bool kParents, bool kDashFree, int LPT>
+int launch_cluster(const BandArgs& a, int cluster, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config<LPT>(a, cluster, stream, &cfg, &attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const RegKernel kern = reg_kernel<kParents, kDashFree, LPT, true, true>(
+      a.mode);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (active < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <bool kParents, bool kDashFree, int LPT, bool kMulti>
 int launch_reg(const BandArgs& a, int reads_per_cta, cudaStream_t stream) {
@@ -721,20 +910,21 @@ int launch_reg(const BandArgs& a, int reads_per_cta, cudaStream_t stream) {
     block = 32 * reads_per_cta;
   }
   if (a.mode == 0) {
-    band_reg_kernel<kParents, kDashFree, 0, LPT, kMulti>
+    band_reg_kernel<kParents, kDashFree, 0, LPT, kMulti, false>
         <<<grid, block, 0, stream>>>(a);
   } else if (a.mode == 1) {
-    band_reg_kernel<kParents, kDashFree, 1, LPT, kMulti>
+    band_reg_kernel<kParents, kDashFree, 1, LPT, kMulti, false>
         <<<grid, block, 0, stream>>>(a);
   } else {
-    band_reg_kernel<kParents, kDashFree, 2, LPT, kMulti>
+    band_reg_kernel<kParents, kDashFree, 2, LPT, kMulti, false>
         <<<grid, block, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan (path, lanes per thread, reads per CTA, shared bytes) comes from
-// ops/band.band_plan; a plan no kernel was built for is refused.
+// The plan (path, lanes per thread, reads per CTA - the cluster size on
+// the "cluster" path - and shared bytes) comes from ops/band.band_plan; a
+// plan no kernel was built for is refused.
 template <bool kParents>
 int launch_band(const void* q, int n, int n_pad, const void* t, int m,
                 int m_eff, const void* q_len, const void* t_len, int B, int W,
@@ -782,6 +972,10 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
   BIOINFO1_BAND_CASE(kPathWarp, 4, false)   // W = 128
   BIOINFO1_BAND_CASE(kPathWarp, 8, false)   // W = 256
   BIOINFO1_BAND_CASE(kPathWarps, 8, true)   // W <= kRegMaxW
+  if (path == kPathCluster && lpt == 8)     // W <= kRegMaxW * kMaxCluster
+    return dash_free ? launch_cluster<kParents, true, 8>(a, reads_per_cta, st)
+                     : launch_cluster<kParents, false, 8>(a, reads_per_cta,
+                                                          st);
 #ifdef BIOINFO1_BAND_LPT_TRIAL  // chip_smoke.py --lpt-trial: the other LPTs
   BIOINFO1_BAND_CASE(kPathWarp, 16, false)
   BIOINFO1_BAND_CASE(kPathWarps, 4, true)
@@ -795,8 +989,9 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
 
 // K2.  q: (B, n) uint8; t: (B, m) uint8; q_len/t_len: (B,) int32; out:
 // (3, B) int32 rows score, goal_i, goal_j.  W is a multiple of 128.  path,
-// lpt, reads_per_cta and smem_bytes are ops/band.band_plan's; scratch is
-// (B, 3 * W) int32 on the scratch path when smem_bytes == 0, else unused.
+// lpt, reads_per_cta (the cluster size on the "cluster" path) and
+// smem_bytes are ops/band.band_plan's; scratch is (B, 3 * W) int32 on the
+// scratch path when smem_bytes == 0, else unused.
 extern "C" int bioinfo1_band_score(const void* q, int n, int n_pad,
                                    const void* t, int m, int m_eff,
                                    const void* q_len, const void* t_len,
@@ -826,4 +1021,28 @@ extern "C" int bioinfo1_band_parents(const void* q, int n, int n_pad,
                            n_steps, mode, dash_free, match, mismatch, gap,
                            scratch, out, path, lpt, reads_per_cta, smem_bytes,
                            par, stream);
+}
+
+// How many clusters of the "cluster" path the card holds at once
+// (cudaOccupancyMaxActiveClusters) for `cluster` CTAs of `threads` threads,
+// K2 (parents 0) or K4, in `mode`, into *out.
+extern "C" int bioinfo1_band_cluster_occupancy(int parents, int mode,
+                                               int cluster, int threads,
+                                               int* out) {
+  BandArgs a{};
+  a.W = threads * cluster * 8;
+  a.B = 1;
+  a.mode = mode;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config<8>(a, cluster, nullptr, &cfg, &attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (parents) {
+    e = cudaOccupancyMaxActiveClusters(
+        out, reg_kernel<true, true, 8, true, true>(mode), &cfg);
+  } else {
+    e = cudaOccupancyMaxActiveClusters(
+        out, reg_kernel<false, true, 8, true, true>(mode), &cfg);
+  }
+  return static_cast<int>(e);
 }

@@ -41,13 +41,16 @@ _SIGNATURES = {
     "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
     # q, n, n_pad, t, m, m_eff, q_len, t_len, B, W, n_steps, mode,
     # dash_free, match, mismatch, gap, scratch, out, path, lpt,
-    # reads_per_cta, smem_bytes (ops/band.band_plan), stream
+    # reads_per_cta (the cluster size on the "cluster" path), smem_bytes
+    # (ops/band.band_plan), stream
     "bioinfo1_band_score": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     # as bioinfo1_band_score, with parents before the stream
     "bioinfo1_band_parents": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                               _P],
+    # parents, mode, cluster, threads, out (int*): clusters resident at once
+    "bioinfo1_band_cluster_occupancy": [_I, _I, _I, _I, _P],
     # parents, S4, B, W, goal_i, goal_j, score, q, qn, t, tm, mode, match,
     # mismatch, gap, out, stream
     "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,

@@ -19,9 +19,11 @@ reads them).  Unlike the JAX wrapper, B is not padded to 128.
 
 ``align_scores_banded`` is the wrapper of kernels K2 (score only) and K4
 (with parents), both in csrc/band_score.cu: CUDA tensors launch a kernel
-(counted on ``align_scores_banded.launches`` and ``.parent_launches``),
+(counted on ``align_scores_banded.launches`` and ``.parent_launches``, and
+by path of ``band_plan`` on ``.path_launches``),
 CPU tensors take ``align_scores_banded_plain``.  ``band_plan`` picks the
-kernel from W alone: lanes in registers up to ``W_REG``, the scratch
+kernel from W alone: lanes in registers up to ``W_REG`` in one CTA, up to
+``W_CLUSTER`` across the CTAs of a thread-block cluster, the scratch
 kernel above.  ``certify`` is plain
 tensor code on either device, as in the JAX package.  The port rounds
 every band to 128 lanes on both devices (the JAX CPU path rounds its
@@ -31,6 +33,7 @@ realign band to 16).
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -211,33 +214,57 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
 # The kernels' dispatch (csrc/band_score.cu): by W alone.  Up to W_REG lanes
 # a thread keeps LPT band lanes in registers: one warp per read ("warp",
 # W == 32 * LPT, several reads per CTA, no block sync) or W / LPT threads
-# per read ("warps", one read per CTA, one block sync per diagonal).  Wider
-# bands take the scratch kernel (one CTA per read, the diagonals in shared
-# memory or, past SMEM_LIMIT, a per-read global scratch).
+# per read ("warps", one read per CTA, one block sync per diagonal).  Up to
+# W_CLUSTER lanes the same threads span the CTAs of a thread-block cluster
+# ("cluster", one cluster per read, one cluster barrier per diagonal, the
+# edge values between CTAs in distributed shared memory).  Wider bands take
+# the scratch kernel (one CTA per read, the diagonals in shared memory or,
+# past SMEM_LIMIT, a per-read global scratch).
 W_REG = 4096
-PATHS = ("warp", "warps", "scratch")       # the C launcher's path numbers
+W_CLUSTER = 32768
+PATHS = ("warp", "warps", "scratch", "cluster")  # the C launcher's numbers
 WARP_LPT = {128: 4, 256: 8}                # "warp" path: W -> LPT
 WARPS_LPT = 8
 MAX_READS_PER_CTA = 4
+MAX_CLUSTER = 8                            # the portable cluster size
 SM_COUNT = 132                             # H100
 SCRATCH_THREADS = 512
-# Static shared memory of the register kernel: four 32-entry warp-edge
-# arrays and 32 goal triples.
-REG_SMEM_BYTES = 4 * 32 * 4 + 32 * 3 * 4
+# Static shared memory of the register kernel: four 33-entry edge arrays
+# and 32 goal triples, plus two goal triples of each CTA of a cluster.
+REG_SMEM_BYTES = 4 * 33 * 4 + 32 * 3 * 4 + 2 * MAX_CLUSTER * 3 * 4
 
 
 @dataclasses.dataclass(frozen=True)
 class BandPlan:
     path: str               # one of PATHS
     lpt: int                # band lanes a thread keeps (0: scratch path)
-    threads_per_read: int
+    threads_per_cta: int
     reads_per_cta: int
     smem_bytes: int         # shared memory of one CTA
     scratch_ints: int       # per-read int32 global scratch (0: none)
+    cluster: int = 1        # CTAs per read (the "cluster" path: 2-8)
 
     @property
-    def threads_per_cta(self) -> int:
-        return self.threads_per_read * self.reads_per_cta
+    def threads_per_read(self) -> int:
+        return self.threads_per_cta * self.cluster // self.reads_per_cta
+
+    def segments(self) -> list:
+        """[first, end) lanes of each CTA of a read on the register paths."""
+        seg = self.threads_per_cta * self.lpt // self.reads_per_cta
+        return [(r * seg, (r + 1) * seg) for r in range(self.cluster)]
+
+
+def cluster_shape(W: int) -> tuple:
+    """(CTAs, threads per CTA) of a W-lane band on the "cluster" path: the
+    fewest CTAs, at least ceil(W / W_REG), that split the W / WARPS_LPT
+    threads evenly.  W is a multiple of 128, so W / 8 is one of 16, and a
+    cluster of 2, 4 or 8 always splits it: every CTA has the same
+    threads (one blockDim), each owning WARPS_LPT lanes, none idle."""
+    nthr = W // WARPS_LPT
+    for c in range(-(-W // W_REG), MAX_CLUSTER + 1):
+        if nthr % c == 0:
+            return c, nthr // c
+    raise ValueError(f"cluster_shape: W={W} is wider than {W_CLUSTER}")
 
 
 def band_plan(W: int, B: int, want_parents: bool) -> BandPlan:
@@ -250,10 +277,20 @@ def band_plan(W: int, B: int, want_parents: bool) -> BandPlan:
     if W in WARP_LPT:
         lpt = WARP_LPT[W]
         rpc = max(1, min(MAX_READS_PER_CTA, B // (2 * SM_COUNT)))
-        return BandPlan("warp", lpt, W // lpt, rpc, REG_SMEM_BYTES, 0)
+        return BandPlan("warp", lpt, W // lpt * rpc, rpc, REG_SMEM_BYTES, 0)
     if W <= W_REG:
         return BandPlan("warps", WARPS_LPT, W // WARPS_LPT, 1,
                         REG_SMEM_BYTES, 0)
+    if W <= W_CLUSTER:
+        c, threads = cluster_shape(W)
+        return BandPlan("cluster", WARPS_LPT, threads, 1, REG_SMEM_BYTES, 0,
+                        c)
+    return scratch_plan(W, want_parents)
+
+
+def scratch_plan(W: int, want_parents: bool) -> BandPlan:
+    """The scratch kernel's launch shape (any W; ``band_plan`` gives it the
+    bands past W_CLUSTER)."""
     # Per-read state: three int32 diagonals, plus K4's W accumulator bytes
     # (csrc/band_score.cu state_ints).
     state_ints = 3 * W + (W // 4 if want_parents else 0)
@@ -296,7 +333,8 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
                 q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,
                 int(dash_free), match, mismatch, gap,
                 0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                PATHS.index(plan.path), plan.lpt, plan.reads_per_cta,
+                PATHS.index(plan.path), plan.lpt,
+                plan.cluster if plan.path == "cluster" else plan.reads_per_cta,
                 plan.smem_bytes]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if want_parents:
@@ -306,23 +344,32 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
         else:
             build.launch(align_scores_banded, "bioinfo1_band_score", *args,
                          stream)
+        with _path_lock:
+            align_scores_banded.path_launches[plan.path] += 1
     return AlignOut(*out.unbind(0), parents=parents)
 
 
 align_scores_banded.launches = 0          # K2
 align_scores_banded.parent_launches = 0   # K4
+# K2 and K4 launches by path of band_plan (the mapper launches from several
+# worker threads).
+align_scores_banded.path_launches = dict.fromkeys(PATHS, 0)
+_path_lock = threading.Lock()
 
 
 def parent_cells(parents: torch.Tensor, q_lens: torch.Tensor,
-                 t_lens: torch.Tensor, m_eff: int) -> torch.Tensor:
+                 t_lens: torch.Tensor, m_eff: int,
+                 first_row: int = 0) -> torch.Tensor:
     """(4 * S4, B, W) uint8: the 2-bit parent of every in-band cell with
     1 <= i <= q_len and 1 <= j <= min(t_len, m_eff), 255 elsewhere - the
     cells a parents tensor is defined on (what the walk of a certified read
-    can read), for comparing two of them."""
+    can read), for comparing two of them.  ``parents`` may be the byte rows
+    from ``first_row`` on of a larger tensor."""
     S4, B, W = parents.shape
     dev = parents.device
-    d = torch.arange(2, 4 * S4 + 2, device=dev, dtype=torch.int32)[:, None,
-                                                                      None]
+    d0 = 2 + 4 * first_row
+    d = torch.arange(d0, d0 + 4 * S4, device=dev, dtype=torch.int32)[:, None,
+                                                                       None]
     lanes = torch.arange(W, device=dev, dtype=torch.int32)[None, None, :]
     i = (d + W) // 2 - lanes
     j = d - i

@@ -28,9 +28,14 @@ whole matrix - the full DP - walked by K5; the JAX package runs a
 full-matrix wavefront with its own parent layout instead, with the same
 parents and goal cell.
 
+A batch that raises is isolated as in the JAX package: counted in
+``MapperCounters.faults``, reported on stderr with the reference's line,
+and retried - on the device at the same budget after an out-of-memory
+error (up to 6 attempts), else on the host path - or, when the host path
+itself fails, reported unmapped.  A CUDA error that the host path meets
+again ends the run (a sticky error poisons the context).
+
 Not ported yet, and refused rather than ignored: more than one device.
-Unlike the JAX package, a device or kernel error is not re-routed to the
-host path: it propagates and the run fails.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -103,6 +109,7 @@ class MapperCounters:
     budget_retries: int = 0        # match-budget overflow reruns
     realign_reroutes: int = 0      # certificate misses sent to a realign pass
     host_fallbacks: int = 0        # reads the fused path handed to the host path
+    faults: int = 0                # batches that raised and were isolated
     realign_batches: int = 0       # realign passes run
     realign_chunks: int = 0        # their device dispatches (-c splits them)
     t_fused_s: float = 0.0         # fused step dispatch + fetch
@@ -299,6 +306,12 @@ def unported_features(cfg: MapperConfig) -> List[str]:
     if cfg.devices > 1:
         out.append(f"--devices {cfg.devices} (more than one device)")
     return out
+
+
+def _is_cuda_error(e: Exception) -> bool:
+    """A CUDA error: a kernel launch refused or failed
+    (``kernels/build.launch``'s message) or one that PyTorch reports."""
+    return "CUDA error" in str(e)
 
 
 def _free_memory_bytes(device: torch.device) -> int:
@@ -851,6 +864,7 @@ class Mapper:
         results: List[ReadMapping] = [ReadMapping(mapped=False)] * len(seqs)
         pending = list(range(len(seqs)))
         force_host: set = set()     # certificate misses no band can settle
+        oom_retry: set = set()      # device out-of-memory reruns: same budget
         mult: dict = {}             # per-read budget multiplier (overflow)
         band_hint: dict = {}        # per-read certifying band (fused score)
         budget = cfg.initial_match_budget
@@ -864,8 +878,8 @@ class Mapper:
                 fused = False
                 with self._counters_lock:
                     self.counters.host_fallbacks += sum(
-                        1 for i in pending
-                        if i not in band_hint and i not in force_host)
+                        1 for i in pending if i not in band_hint
+                        and i not in force_host and i not in oom_retry)
             attempts += 1
             # One realign pass covers every missed read with a proven band,
             # whatever its length bucket.
@@ -877,7 +891,8 @@ class Mapper:
             for bucket in _bucket_indices([len(seqs[i]) for i in rest],
                                           cfg.bucket_growth, floor):
                 idxs = [rest[j] for j in bucket]
-                on_dev = [i for i in idxs if fused and i not in force_host]
+                on_dev = [i for i in idxs if (fused or i in oom_retry)
+                          and i not in force_host]
                 on_dev_s = set(on_dev)
                 host_idx = [i for i in idxs if i not in on_dev_s]
                 pairs.append((on_dev, "fused"))
@@ -905,17 +920,48 @@ class Mapper:
                 retry: List[int] = []
                 realign: List[int] = []
                 hints: dict = {}
-                if kind == "band":
-                    res, realign = self._realign_bucket(
-                        sub, {loc: band_hint[i]
-                              for loc, i in enumerate(sub_idxs)})
-                elif kind == "fused":
-                    res, retry, realign, hints, need = \
-                        self._map_bucket_fused(sub, b_budget)
-                else:
-                    res, retry = self._map_bucket(
-                        sub, b_budget, band_hint=max(
-                            band_hint.get(i, (0,))[0] for i in sub_idxs))
+                try:
+                    if kind == "band":
+                        res, realign = self._realign_bucket(
+                            sub, {loc: band_hint[i]
+                                  for loc, i in enumerate(sub_idxs)})
+                    elif kind == "fused":
+                        res, retry, realign, hints, need = \
+                            self._map_bucket_fused(sub, b_budget)
+                    else:
+                        res, retry = self._map_bucket(
+                            sub, b_budget, band_hint=max(
+                                band_hint.get(i, (0,))[0] for i in sub_idxs))
+                except Exception as e:
+                    # Per-batch fault isolation, the JAX package's ladder
+                    # (its mapper.py:1174-1194; the reference logs a
+                    # per-read Align throw and goes on).
+                    with self._counters_lock:
+                        self.counters.faults += 1
+                    print(f"ERROR: Exception during Align: {e}",
+                          file=sys.stderr)
+                    if kind != "host":
+                        # Device out of memory (batches in flight): rerun
+                        # on the device at the same budget once the
+                        # pressure drains; any other error, or a sixth
+                        # attempt, takes the host path.
+                        if (isinstance(e, torch.cuda.OutOfMemoryError)
+                                and attempts < 6):
+                            oom_retry.update(sub_idxs)
+                        else:
+                            force_host.update(sub_idxs)
+                        next_pending.extend(sub_idxs)
+                    elif _is_cuda_error(e):
+                        # A sticky CUDA error poisons the context: every
+                        # later call fails the same way, so a CUDA error
+                        # on the host path (where the device route sent
+                        # these reads) ends the run rather than report
+                        # every later batch unmapped.
+                        raise
+                    else:
+                        for i in sub_idxs:
+                            results[i] = ReadMapping(mapped=False)
+                    continue
                 retry_s, realign_s = set(retry), set(realign)
                 # >2% of a batch overflowing marks the bucket repeat-dense:
                 # widen its future starting budget to cover the exact
@@ -969,6 +1015,7 @@ class Mapper:
                             force_host.add(i)
                         next_pending.append(i)
                     else:
+                        oom_retry.discard(i)
                         results[i] = res[loc]
             pending = next_pending
             if attempts >= 24:      # safety: ~16M matches per read

@@ -14,11 +14,16 @@ run):
      defined on, ops/band.parent_cells), K5 traceback walk (on each K4
      parent tensor; K4 and K5 also at a band that covers the whole
      matrix), K6 int32 probe.  K2 and K4 run on every dispatch path of
-     ops/band.band_plan, each row naming its path and lanes per thread:
-     one warp per read (W = 128, 256; also with more reads than fill
-     whole CTAs), several warps per read (W = 512, 1024, 4096) and the
-     scratch kernel (W = 19968), all three modes and both dash_free
-     settings on each.
+     ops/band.band_plan, each row naming its path, lanes per thread,
+     cluster size and threads per CTA: one warp per read (W = 128, 256;
+     also with more reads than fill whole CTAs), several warps per read
+     (W = 512, 1024, 4096), a thread-block cluster per read (W = 19968,
+     24576) and the scratch kernel (W = 32896), all three modes and both
+     dash_free settings on each.  Then K2 and K4 on the cluster path at
+     the 50 kb reads' shape (11 reads of ~46 kb, W = 25088) against the
+     plain version and the scratch kernel on the same inputs, the scratch
+     kernel timed too, and the clusters the card holds at once
+     (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.
   2. the CLI's default score-only path at E. coli scale: a 4,641,652 bp
      synthetic genome (direct-address index on the card) and 2,048
      ONT-profile reads (2/4/8 kb plus 10% at 200-500 bp) through
@@ -33,6 +38,12 @@ run):
      (no exactness certificate) on the first 256 reads, and --bug-compat
      on a FASTA copy of the first 512 (FASTA match nesting, score-only);
      t_host_s > 0 and K1, K4 and K5 (K3 in the FASTA run) launched.
+  2L. the main path at 50 kb: 16 ONT-profile reads of 50 kb from the
+     bench's genome through Mapper.map_records in-process (score-only,
+     fresh bands): as planned (their bands take the cluster path, which
+     must have launched), then with ops/band.band_plan sending every band
+     past W_REG to the scratch kernel, then as planned again; the three
+     PAFs must be byte-identical; reads/s of each run.
   2r. bench_torch.measure_repeat() at full size (a 4,641,652 bp
      repeat-structured genome, 1,026 + 1,026 reads, score-only and -c)
      with its reads/s and counters, then bench_torch.measure_sol(): K6's
@@ -54,7 +65,8 @@ run):
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
-The second-to-last line is the kernel table as JSON: per kernel its
+The second-to-last line is the kernel table as JSON: per kernel (K1-K6,
+and K2's cluster path as its own entry, launched on phase 2L) its
 launches on its path, its time, the plain version's, and its bound - the
 larger of its bytes over the card's memory rate and the int32 operations
 the function needs (NEEDED_OPS per unit, times this run's cells inside
@@ -69,6 +81,7 @@ terminal keeps only the end of the output).
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -94,6 +107,7 @@ N_CPU_LOCAL_READS = 32            # -c -a local (phase 3)
 N_STAGED_READS = 256              # -c -g 1 (phase 2s)
 N_STAGED_FASTA_READS = 512        # --bug-compat on FASTA (phase 2s)
 N_CPU_STAGED_READS = 32           # staged runs on the CPU (phase 3)
+N_LONG_READS = 16                 # 50 kb reads (phase 2L)
 CPU_STAGED_MAX_LEN = 4500
 
 # Card peaks the bounds are stated against (NVIDIA's H100 SXM data sheet):
@@ -120,6 +134,7 @@ PEAK_INT32_PER_S = 67e12 / 2
 NEEDED_OPS = {
     "lis_chain": 5,
     "band_score": bench_torch.NEEDED_OPS_PER_CELL,
+    "band_score_cluster": bench_torch.NEEDED_OPS_PER_CELL,
     "full_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_parents": bench_torch.NEEDED_OPS_PER_CELL + 5,
     "walk_parents": 0,
@@ -131,6 +146,9 @@ KERNELS = {
                   "bioinfo1_tpu/ops/pallas_chain.py:57"),
     "band_score": ("bioinfo1_tpu_torch/csrc/band_score.cu",
                    "bioinfo1_tpu/ops/pallas_band.py:56"),
+    # K2's cluster path (kRegMaxW < W <= 32,768): the 50 kb reads' bands.
+    "band_score_cluster": ("bioinfo1_tpu_torch/csrc/band_score.cu",
+                           "bioinfo1_tpu/ops/pallas_band.py:56"),
     "full_score": ("bioinfo1_tpu_torch/csrc/full_score.cu",
                    "bioinfo1_tpu/ops/pallas_align.py:45"),
     "band_parents": ("bioinfo1_tpu_torch/csrc/band_score.cu",
@@ -198,17 +216,15 @@ def compare(name: str, kernel, plain, reps: int = 3, err_fn=max_abs_err,
 
 
 def parents_err(q_lens, t_lens, m_eff):
-    """max_abs_err of two banded outputs with parents: score and goal
-    cells everywhere, parents on the cells they are defined on."""
-    from bioinfo1_tpu_torch.ops import band as bd
-
+    """The error of two banded outputs with parents: max_abs_err of score
+    and goal cells, and the number of cells where the parents differ on
+    the cells they are defined on (0 when equal)."""
     def err(got, want):
-        cells = [bd.parent_cells(x.parents, q_lens, t_lens, m_eff)
-                 for x in (got, want)]
         return max(max_abs_err(got.score, want.score),
                    max_abs_err(got.goal_i, want.goal_i),
                    max_abs_err(got.goal_j, want.goal_j),
-                   max_abs_err(*cells))
+                   parents_err_chunked(got.parents, want.parents, q_lens,
+                                       t_lens, m_eff))
     return err
 
 
@@ -312,7 +328,9 @@ def phase_kernels(dev) -> dict:
         """Which kernel of csrc/band_score.cu the row ran on."""
         plan = bd.band_plan(W, B, want_parents)
         return {"path": plan.path, "lpt": plan.lpt,
-                "reads_per_cta": plan.reads_per_cta}
+                "reads_per_cta": plan.reads_per_cta,
+                "cluster": plan.cluster,
+                "threads_per_cta": plan.threads_per_cta}
 
     def band_row(pairs, W, mode, dash_free, reps):
         qq, qql, tt, ttl = pairs
@@ -329,6 +347,8 @@ def phase_kernels(dev) -> dict:
         row.update(plan_of(B, W, False))
         row.update(band_work(qq, qql, tt, ttl, W, False))
         rows["band_score"].append(row)
+        if row["path"] == "cluster":
+            rows["band_score_cluster"].append(row)
 
     def first(B):
         return [x[:B].contiguous() for x in (q, ql, t, tl)]
@@ -339,9 +359,11 @@ def phase_kernels(dev) -> dict:
         for dash_free in (True, False):
             band_row((q, ql, t, tl), 256, mode, dash_free, 3)
     # Every dispatch path at the same pairs: one warp per read (W = 128),
-    # several warps (W = 512 ... 4096), the scratch kernel (W = 19968).
+    # several warps (W = 512 ... 4096), a cluster per read (W = 24576, the
+    # kernel table's cluster row, and 19968), the scratch kernel (W =
+    # 32896).
     for B, W in ((256, 128), (256, 512), (256, 1024), (256, 4096),
-                 (32, 19968)):
+                 (32, 24576), (32, 19968), (32, 32896)):
         band_row(first(B), W, 0, True, 3 if W <= 1024 else 1)
     # Small pairs: every mode and variant on the several-warps and the
     # scratch path, and a B that is no multiple of the reads per CTA.
@@ -352,7 +374,7 @@ def phase_kernels(dev) -> dict:
           "531 reads fill whole CTAs: the ragged last CTA is not driven")
     for mode in (0, 1, 2):
         for dash_free in (True, False):
-            for W in (512, 19968):
+            for W in (512, 19968, 32896):
                 band_row(small, W, mode, dash_free, 1)
         band_row(many, 128, mode, False, 1)
 
@@ -396,14 +418,14 @@ def phase_kernels(dev) -> dict:
     # register paths (the last is a wide realign call).
     for B, W, mode in ((256, 256, 0), (256, 256, 1), (256, 256, 2),
                        (256, 128, 0), (256, 512, 0), (128, 1024, 0),
-                       (32, 4096, 0)):
+                       (32, 4096, 0), (16, 24576, 0)):
         parents_and_walk(*first(B), W, mode, True, 3 if W <= 256 else 1)
     del q, ql, t, tl
     # Small pairs: every mode and variant on the several-warps and the
     # scratch path; the ragged last CTA of the one-warp path.
     for mode in (0, 1, 2):
         for dash_free in (True, False):
-            for W in (512, 19968):
+            for W in (512, 19968, 32896):
                 parents_and_walk(*small, W, mode, dash_free, 1)
         parents_and_walk(*many, 128, mode, False, 1)
     # The staged path's -c shape: a band that covers the whole matrix (the
@@ -436,7 +458,101 @@ def phase_kernels(dev) -> dict:
                   lambda: probe.int32_probe_plain(x, 100), reps=5)
     row.update(work=x.numel() * 100, unit="trips", bytes=8 * x.numel())
     rows["int32_probe"].append(row)
+    del x
+    torch.cuda.empty_cache()
+    # The cluster path at the 50 kb reads' shape: the kernel table's row
+    # for K2's cluster path.
+    k2_50k, k4_50k = band_rows_50k(rng, dev, scoring)
+    rows["band_score"].append(k2_50k)
+    rows["band_score_cluster"].insert(0, k2_50k)
+    rows["band_parents"].append(k4_50k)
+    rows["cluster_occupancy"] = cluster_occupancy()
     return rows
+
+
+def band_rows_50k(rng, dev, scoring) -> list:
+    """K2 and K4 on the cluster path at the shape the 50 kb reads give
+    them (11 reads of ~46 kb against regions 1,500 bases longer, W =
+    25088: 7 CTAs of 448 threads), held to the plain version and to the
+    scratch kernel on the same inputs, with the scratch kernel's time
+    beside the kernel's: the time the cluster path replaces."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    W, B, n, m = 25088, 11, 50000, 52000
+    qa = np.zeros((B, n), np.uint8)
+    ta = np.zeros((B, m), np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        ln = int(rng.integers(44000, 48000))
+        tgt = sim.random_genome(ln + 1500, rng)
+        qry = sim.mutate_read(tgt[:ln], rng)[:n]
+        qa[b, :len(qry)], ql[b] = qry, len(qry)
+        ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
+    q, ql, t, tl = (torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl))
+    m_eff = bd.band_shapes(n, m, W)[2]
+    planned = bd.band_plan
+    out = []
+    for parents in (False, True):
+        def run(scratch=False, plain=False):
+            fn = (bd.align_scores_banded_plain if plain
+                  else bd.align_scores_banded)
+            if scratch:
+                bd.band_plan = lambda W_, B_, p_: bd.scratch_plan(W_, p_)
+            try:
+                return fn(q, ql, t, tl, *scoring, band=W, mode=0,
+                          dash_free=True, want_parents=parents)
+            finally:
+                bd.band_plan = planned
+        err_fn = parents_err(ql, tl, m_eff) if parents else max_abs_err
+        row, got = compare(
+            f"band{'+parents' if parents else ''} W={W} B={B} n={n} mode=0 "
+            "dash_free=True", run, lambda: run(plain=True), reps=1,
+            err_fn=err_fn, keep=True)
+        torch.cuda.empty_cache()
+        err = err_fn(got, run(scratch=True))
+        check(err == 0, f"cluster path differs from the scratch kernel at "
+                        f"W={W}, n={n}, parents={parents}")
+        del got
+        torch.cuda.empty_cache()
+        row.update(scratch_ms=cuda_ms(lambda: run(scratch=True), 1),
+                   max_abs_err_vs_scratch=err,
+                   **dataclasses.asdict(bd.band_plan(W, B, parents)))
+        row.update(band_work(q, ql, t, tl, W, parents))
+        out.append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def parents_err_chunked(a, b, q_lens, t_lens, m_eff, rows: int = 256):
+    """The number of cells inside the matrix where two parent tensors
+    differ, ``ops/band.parent_cells`` taken over chunks of byte rows (the
+    whole tensors would not expand at once)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    err = 0
+    for r0 in range(0, a.shape[0], rows):
+        ca, cb = (bd.parent_cells(x[r0:r0 + rows], q_lens, t_lens, m_eff,
+                                  first_row=r0) for x in (a, b))
+        err = max(err, int((ca != cb).sum()))
+    return err
+
+
+def cluster_occupancy() -> list:
+    """cudaOccupancyMaxActiveClusters of the cluster path for 2-8 CTAs of
+    512 threads: how many reads' clusters run at once, K2 and K4."""
+    import ctypes
+    from bioinfo1_tpu_torch.kernels import build
+    lib = build.library()
+    out = []
+    for parents in (False, True):
+        for c in range(2, 9):
+            n = ctypes.c_int(0)
+            err = lib.bioinfo1_band_cluster_occupancy(int(parents), 0, c, 512,
+                                                      ctypes.byref(n))
+            check(err == 0, f"cluster occupancy ({c} CTAs): CUDA error {err}")
+            out.append({"parents": parents, "cluster": c, "threads": 512,
+                        "clusters_at_once": n.value,
+                        "ctas_at_once": n.value * c})
+    return out
 
 
 def phase_lpt_trial(dev) -> dict:
@@ -494,24 +610,26 @@ def issued_per_unit(listing: str) -> dict:
     its own SASS: the integer instructions of its largest innermost loop,
     per pair for K1, per swept lane for K3, per trip (its add and max
     instructions) for K6.  For K2 and K4 the kernel that serves the
-    table's row (W = 256, global, dash_free): the integer instructions of
-    its interior pair loop over the 2 * LPT cells of a trip.  Reported
-    beside NEEDED_OPS; no bound uses it."""
+    table's row (W = 256, global, dash_free), and the cluster path's at the
+    50 kb reads' W = 25088: the integer instructions of its interior pair
+    loop over the 2 * LPT cells of a trip.  Reported beside NEEDED_OPS; no
+    bound uses it."""
     import sass_census as sass
     from bioinfo1_tpu_torch.ops import band as bd
 
     def ints(needle):
         return sass.cell_loops(listing, needle)[0]["by_kind"].get("int", 0)
 
-    def band(parents):
-        plan = bd.band_plan(256, 256, parents)
-        needle = sass.band_reg_needle(parents, True, 0, plan.lpt,
-                                      plan.path == "warps")
-        return sass.band_interior_loop(listing, needle,
+    def band(parents, W=256, B=256):
+        plan = bd.band_plan(W, B, parents)
+        return sass.band_interior_loop(listing,
+                                       sass.plan_needle(plan, parents),
                                        plan.lpt)["int_per_cell"]
 
     return {"lis_chain": ints("lis_chain_kernel"),
             "band_score": band(False),
+            "band_score_cluster": band(False, 25088, 11),
+            "band_parents_cluster": band(True, 25088, 11),
             "band_parents": band(True),
             "full_score": ints("full_score_kernel"),
             "walk_parents": 0,
@@ -587,6 +705,25 @@ def parse_profile(err: str) -> dict:
     return {"stages_s": stages, "throughput": jsons[0], "mapper": jsons[1]}
 
 
+class _PathCount:
+    """The launches of one path of ops/band.band_plan (K2 and K4 together;
+    the score-only runs launch K2 alone), read and reset like a wrapper's
+    count: ``launches``."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    @property
+    def launches(self) -> int:
+        from bioinfo1_tpu_torch.ops import band as bd
+        return bd.align_scores_banded.path_launches[self.path]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from bioinfo1_tpu_torch.ops import band as bd
+        bd.align_scores_banded.path_launches[self.path] = n
+
+
 def launch_counters() -> dict:
     """Kernel name -> (wrapper, attribute) holding its launch count."""
     from bioinfo1_tpu_torch.ops import align as al
@@ -597,15 +734,19 @@ def launch_counters() -> dict:
     return {"int32_probe": (probe.int32_probe, "launches"),
             "lis_chain": (ch.lis_chain, "launches"),
             "band_score": (bd.align_scores_banded, "launches"),
+            "band_score_cluster": (_PathCount("cluster"), "launches"),
             "full_score": (al.align_scores, "launches"),
             "band_parents": (bd.align_scores_banded, "parent_launches"),
             "walk_parents": (tr.walk_parents, "launches")}
 
 
 def reset_launches() -> dict:
+    from bioinfo1_tpu_torch.ops import band as bd
     counters = launch_counters()
     for wrapper, attr in counters.values():
         setattr(wrapper, attr, 0)
+    for path in bd.PATHS:
+        bd.align_scores_banded.path_launches[path] = 0
     return counters
 
 
@@ -717,6 +858,79 @@ def phase_staged(ref, paths, recs) -> tuple:
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     return {"phase": "2s", "runs": runs, "launches": launches}, lines
+
+
+def longread_records():
+    """16 ONT-profile reads of 50 kb from the bench's genome."""
+    genome = bench_torch.make_data(bench_torch.FULL)[0]
+    recs = sim.simulate_reads(genome, (50000,) * N_LONG_READS,
+                              np.random.default_rng(bench_torch.SEED + 70))
+    return genome.tobytes().decode("latin1"), recs
+
+
+def phase_longread(dev) -> dict:
+    """The score-only main path at 50 kb, in-process: the reads' bands (the
+    certificate drives them past W_REG) go to the cluster path as planned,
+    then to the scratch kernel (ops/band.band_plan patched for W > W_REG),
+    then as planned again.  Same PAF all three times; the kernel counts
+    are set to 0 just before the first run and read just after it."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    genome, recs = longread_records()
+    mapper = Mapper([("bench", genome)], MapperConfig(), device=dev)
+    mapper.device_index()
+    planned = bd.band_plan
+
+    def scratch_past_w_reg(W, B, want_parents):
+        if W > bd.W_REG:
+            return bd.scratch_plan(W, want_parents)
+        return planned(W, B, want_parents)
+
+    runs, outs, launches = [], [], None
+    for name in ("cluster", "scratch", "cluster_again"):
+        # Fresh band adaptation in every run, so the batches match.
+        mapper._band_by_key.clear()
+        mapper._budget_boost.clear()
+        before = mapper.counters.as_dict()
+        counters = reset_launches()
+        if name == "scratch":
+            bd.band_plan = scratch_past_w_reg
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines = mapper.map_records(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            bd.band_plan = planned
+        got = {k: getattr(w, a) for k, (w, a) in counters.items()}
+        paths = dict(bd.align_scores_banded.path_launches)
+        if launches is None:
+            launches = got
+        after = mapper.counters.as_dict()
+        runs.append({"run": name, "wall_s": wall,
+                     "reads_per_s_map": len(recs) / wall,
+                     "paf_lines": len(lines), "band_path_launches": paths,
+                     "bands": {f"{cap},{int(fc)}": band for (cap, fc), band
+                               in mapper._band_by_key.items()},
+                     "counters": {k: after[k] - before.get(k, 0)
+                                  for k in after if k != "cert_hit_rate"
+                                  and isinstance(after[k], (int, float))}})
+        outs.append(lines)
+    check(outs[0] == outs[1] == outs[2],
+          "50 kb reads: the PAF differs between the cluster and the scratch "
+          "path")
+    check(len(outs[0]) >= 0.9 * len(recs),
+          f"50 kb reads: only {len(outs[0])} of {len(recs)} mapped")
+    check(launches["band_score_cluster"] >= 1,
+          "the cluster path never launched on the 50 kb reads")
+    check(runs[1]["band_path_launches"]["cluster"] == 0
+          and runs[1]["band_path_launches"]["scratch"] >= 1,
+          "the scratch run did not take the scratch kernel")
+    del mapper
+    torch.cuda.empty_cache()
+    return {"phase": "2L", "reads": len(recs), "read_len": 50000,
+            "byte_identical": True, "runs": runs, "launches": launches}
 
 
 def phase_repeat_and_roofline(dev) -> dict:
@@ -841,6 +1055,7 @@ def phase_profile(genome: str, recs) -> dict:
 
 def profile_cell(genome: str, recs, cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
+    from bioinfo1_tpu_torch.ops import band as bd
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper
     dev = torch.device("cuda", 0)
     res: dict = {}
@@ -849,6 +1064,7 @@ def profile_cell(genome: str, recs, cfg) -> dict:
         mapper.device_index()
         for name in ("fresh", "adapted"):
             before = mapper.counters.as_dict()
+            paths0 = dict(bd.align_scores_banded.path_launches)
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) \
                 if profiled else None
@@ -867,6 +1083,10 @@ def profile_cell(genome: str, recs, cfg) -> dict:
                    "counters": {k: after[k] - before.get(k, 0)
                                 for k in after if k != "cert_hit_rate"
                                 and isinstance(after[k], (int, float))},
+                   # K2 / K4 launches by path of ops/band.band_plan.
+                   "band_path_launches": {
+                       k: v - paths0[k] for k, v in
+                       bd.align_scores_banded.path_launches.items()},
                    # The bucket bands the pass ended with: "cap,for_cigar".
                    "bands": {f"{cap},{int(fc)}": band for (cap, fc), band
                              in mapper._band_by_key.items()}}
@@ -929,6 +1149,7 @@ def main() -> int:
     with open(os.path.join(WORK, "kernels.sass"), "w") as fh:
         fh.write(listing)
     issued = issued_per_unit(listing)
+    emit({"phase": "1s", "int_ops_per_unit": issued})
     torch.cuda.empty_cache()
 
     ref, paths, recs, genome, short = write_inputs()
@@ -939,6 +1160,8 @@ def main() -> int:
     p2s, staged_lines = phase_staged(ref, paths, recs)
     emit(p2s)
     gpu_lines.update(staged_lines, score=score_lines)
+    p2l = phase_longread(dev)
+    emit(p2l)
     p2r = phase_repeat_and_roofline(dev)
     emit(p2r)
     torch.cuda.empty_cache()
@@ -947,9 +1170,10 @@ def main() -> int:
         emit(phase_profile(genome, recs))
 
     # Launches on each kernel's own path: the score-only run (phase 2) for
-    # K1-K3, the -c runs (phase 2c) for K4 and K5, the roofline (phase 2r)
-    # for K6.
+    # K1-K3, the 50 kb run (phase 2L) for K2's cluster path, the -c runs
+    # (phase 2c) for K4 and K5, the roofline (phase 2r) for K6.
     path_launches = dict(p2["launches"])
+    path_launches["band_score_cluster"] = p2l["launches"]["band_score_cluster"]
     for name in ("band_parents", "walk_parents"):
         path_launches[name] = p2c["launches"][name]
     path_launches["int32_probe"] = p2r["launches"]["int32_probe"]

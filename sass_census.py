@@ -20,9 +20,10 @@ branch.  A shuffle under a mask the compiler cannot prove full gets an
 out-of-line handler (reached by ``BRA.DIV``, placed after the kernel's
 code) that branches back into the code: those branches are no loops.
 
-The banded register kernels (csrc/band_score.cu ``band_reg_kernel``) hold
-two pair loops, border and interior; ``band_interior_loop`` finds the
-interior one, whose trip computes 2 * LPT cells.
+The banded register kernels (csrc/band_score.cu ``band_reg_kernel``, on the
+one-warp, several-warps and cluster paths) hold two pair loops, border and
+interior; ``band_interior_loop`` finds the interior one, whose trip computes
+2 * LPT cells.
 """
 
 from __future__ import annotations
@@ -147,12 +148,21 @@ def cell_loops(listing: str, needle: str) -> List[dict]:
 
 
 def band_reg_needle(parents: bool, dash_free: bool, mode: int, lpt: int,
-                    multi: bool) -> str:
+                    multi: bool, cluster: bool = False) -> str:
     """The part of a ``band_reg_kernel`` instantiation's mangled name that
     tells it from the others (template arguments kParents, kDashFree,
-    kMode, LPT, kMulti)."""
+    kMode, LPT, kMulti, kCluster): the one-warp path is multi = False, the
+    several-warps path multi = True, the cluster path both True."""
     return (f"band_reg_kernelILb{int(parents)}ELb{int(dash_free)}E"
-            f"Li{mode}ELi{lpt}ELb{int(multi)}E")
+            f"Li{mode}ELi{lpt}ELb{int(multi)}ELb{int(cluster)}E")
+
+
+def plan_needle(plan, parents: bool, dash_free: bool = True,
+                mode: int = 0) -> str:
+    """``band_reg_needle`` of the kernel that serves an ``ops/band.BandPlan``
+    on a register path."""
+    return band_reg_needle(parents, dash_free, mode, plan.lpt,
+                           plan.path != "warp", plan.path == "cluster")
 
 
 def band_interior_loop(listing: str, needle: str, lpt: int) -> dict:

@@ -1,7 +1,8 @@
 """The banded kernels' dispatch plan, and two properties their design uses.
 
 ``ops/band.band_plan`` decides, from W alone, which kernel of
-csrc/band_score.cu serves a band (lanes in registers up to ``W_REG``, the
+csrc/band_score.cu serves a band (lanes in registers up to ``W_REG`` in one
+CTA, up to ``W_CLUSTER`` over the CTAs of a thread-block cluster, the
 scratch kernel above) and its launch shape; it is held here for every W a
 caller can ask for.  The register kernels lean on two facts of the
 function itself, pinned on the port's plain version and on the JAX Pallas
@@ -37,8 +38,9 @@ def test_band_plan_every_width(want_parents, B):
         assert plan.threads_per_cta <= 1024, W
         assert plan.smem_bytes <= build.SMEM_LIMIT, W
         assert 1 <= plan.reads_per_cta <= tband.MAX_READS_PER_CTA
-        if W <= tband.W_REG:
-            assert plan.path in ("warp", "warps"), W
+        if W <= tband.W_CLUSTER:
+            assert plan.path == ("cluster" if W > tband.W_REG
+                                 else ("warp", "warps")[W > 256]), W
             assert plan.lpt in (4, 8, 16)
             assert plan.lpt * plan.threads_per_read == W
             assert plan.scratch_ints == 0            # no scratch tensor
@@ -47,6 +49,7 @@ def test_band_plan_every_width(want_parents, B):
                 assert plan.threads_per_read == 32   # one warp per read
             else:
                 assert plan.reads_per_cta == 1
+            assert (plan.cluster > 1) == (plan.path == "cluster")
         else:
             assert plan.path == "scratch", W
             assert plan.reads_per_cta == 1
@@ -61,17 +64,54 @@ def test_band_plan_every_width(want_parents, B):
 
 def test_band_plan_switches_exactly_at_w_reg():
     assert tband.W_REG >= 4096 and tband.W_REG % 128 == 0
+    assert tband.W_CLUSTER == tband.MAX_CLUSTER * tband.W_REG
     for parents in (False, True):
         assert tband.band_plan(tband.W_REG, 7, parents).path == "warps"
         assert tband.band_plan(tband.W_REG + 128, 7,
+                               parents).path == "cluster"
+        assert tband.band_plan(tband.W_CLUSTER, 7, parents).path == "cluster"
+        assert tband.band_plan(tband.W_CLUSTER + 128, 7,
                                parents).path == "scratch"
     # The path depends on W only; B moves nothing but the reads per CTA.
-    for W in (128, 256, 512, 2432, 4096, 4224, 19968):
+    for W in (128, 256, 512, 2432, 4096, 4224, 19968, 32768, 32896):
         plans = [tband.band_plan(W, B, False) for B in (1, 37, 256, 100000)]
         assert len({(p.path, p.lpt, p.threads_per_read, p.smem_bytes,
-                     p.scratch_ints) for p in plans}) == 1
+                     p.scratch_ints, p.cluster) for p in plans}) == 1
     assert tband.band_plan(256, 100000, False).reads_per_cta > 1
     assert tband.band_plan(256, 256, False).reads_per_cta == 1
+
+
+@pytest.mark.parametrize("want_parents", [False, True])
+def test_cluster_plan_tiles_the_band(want_parents):
+    """Every W of the cluster path: at most 8 CTAs of at most 512 threads,
+    all CTAs alike (one blockDim), segments of whole threads that tile
+    [0, W) exactly, no dynamic shared memory and no scratch; the fewest
+    CTAs that split the threads evenly, never fewer than ceil(W / W_REG)."""
+    for W in range(tband.W_REG + 128, tband.W_CLUSTER + 1, 128):
+        plan = tband.band_plan(W, 11, want_parents)
+        c = plan.cluster
+        assert 2 <= c <= tband.MAX_CLUSTER, W
+        assert -(-W // tband.W_REG) <= c, W
+        assert plan.threads_per_cta <= 512 and plan.lpt == 8, W
+        assert plan.threads_per_cta * c * plan.lpt == W, W
+        assert all(W // 8 % k for k in range(-(-W // tband.W_REG), c)), W
+        segs = plan.segments()
+        assert len(segs) == c and segs[0][0] == 0 and segs[-1][1] == W
+        assert all(a[1] == b[0] for a, b in zip(segs, segs[1:]))
+        assert all((e - s) % 8 == 0 and 0 < e - s <= tband.W_REG
+                   for s, e in segs), W
+        assert plan.scratch_ints == 0
+        assert plan.smem_bytes == tband.REG_SMEM_BYTES <= 48 * 1024
+    # W = 25,088 (the 50 kb reads' band) in 7 CTAs of 448
+    # threads; W = 8,320 (1,040 threads, no multiple of 3) in 4 of 260.
+    assert (tband.band_plan(25088, 11, False).cluster,
+            tband.band_plan(25088, 11, False).threads_per_cta) == (7, 448)
+    assert (tband.band_plan(8320, 11, False).cluster,
+            tband.band_plan(8320, 11, False).threads_per_cta) == (4, 260)
+    # At W = 8,192 and 24,576 the main diagonal (lane W / 2) starts a CTA.
+    for W in (8192, 24576):
+        assert W // 2 in [s for s, _ in tband.band_plan(W, 1, False)
+                          .segments()]
 
 
 @pytest.mark.parametrize("W", [0, 100, 130, -128])

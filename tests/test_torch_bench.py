@@ -176,7 +176,7 @@ def _sass_lines(rows):
 # shuffle under a run-time mask whose out-of-line handler (after EXIT)
 # branches back into the interior loop.
 BAND_LISTING = (
-    "\t\tFunction : _ZN3foo15band_reg_kernelILb0ELb1ELi0ELi8ELb0EEEvNS_8BandArgsE\n"
+    "\t\tFunction : _ZN3foo15band_reg_kernelILb0ELb1ELi0ELi8ELb0ELb0EEEvNS_8BandArgsE\n"
     + _sass_lines(
         [(0x0000, "", "S2R R0, SR_TID.X")]
         # border loop 0x10-0x70: 7 instructions, 5 integer
@@ -197,13 +197,13 @@ BAND_LISTING = (
            (0x0110, "", "SHFL.UP P1, R27, R21, R29, R28"),
            (0x0120, "", "ENDCOLLECTIVE"),
            (0x0130, "", "BRA 0xa0")])
-    + "\t\tFunction : _ZN3foo15band_reg_kernelILb1ELb1ELi0ELi8ELb0EEEvNS_8BandArgsE\n"
+    + "\t\tFunction : _ZN3foo15band_reg_kernelILb1ELb1ELi0ELi8ELb0ELb0EEEvNS_8BandArgsE\n"
     + _sass_lines([(0x0000, "", "EXIT")]))
 
 
 def test_sass_reader_skips_divergent_shuffle_handlers():
     needle = sass.band_reg_needle(False, True, 0, 8, False)
-    assert needle == "band_reg_kernelILb0ELb1ELi0ELi8ELb0E"
+    assert needle == "band_reg_kernelILb0ELb1ELi0ELi8ELb0ELb0E"
     instrs = sass.function(BAND_LISTING, needle)
     # The handler's branch back to 0xa0 is a return, not a loop.
     assert [(instrs[a].addr, instrs[b].addr) for a, b in sass.loops(instrs)] \
@@ -225,3 +225,15 @@ def test_band_interior_loop_counts_per_cell(lpt):
     with pytest.raises(KeyError):
         sass.band_interior_loop(
             BAND_LISTING, sass.band_reg_needle(True, True, 0, 8, False), lpt)
+
+
+def test_plan_needle_names_each_register_path():
+    """The kernel that serves a plan: one warp (W = 256), several warps
+    (W = 512), a cluster (W = 25,088)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    want = {256: "Lb0ELb0E", 512: "Lb1ELb0E", 25088: "Lb1ELb1E"}
+    for W, tail in want.items():
+        for parents in (False, True):
+            needle = sass.plan_needle(bd.band_plan(W, 11, parents), parents)
+            assert needle == (f"band_reg_kernelILb{int(parents)}ELb1ELi0E"
+                              f"Li8E{tail}")

@@ -12,6 +12,7 @@ tolerance 0.  Banded parents are compared on the cells they are defined on
 certificate passes, or on all reads where both walks get the same parents.
 """
 
+import dataclasses
 import io
 import threading
 
@@ -120,7 +121,9 @@ def _pairs(rng, B, n, m, dev):
     return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
 
 
-BANDS = [128, 256, 512, 1024, 4096, 19968]   # every path of band_plan
+# Every path of band_plan: one warp, several warps, a cluster (W = 19,968:
+# 6 CTAs of 416 threads), the scratch kernel (W > 32,768).
+BANDS = [128, 256, 512, 1024, 4096, 19968, 32896]
 
 
 @pytest.mark.parametrize("band", BANDS)
@@ -186,12 +189,13 @@ def _tie_pairs(rng, B, n, m, dash, dev):
 
 
 @pytest.mark.parametrize("B", [1, 37])
-@pytest.mark.parametrize("band", [128, 256, 640, 4224])
+@pytest.mark.parametrize("band", [128, 256, 640, 4224, 8320])
 @pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1), (1, -1, -1)])
 def test_band_kernels_on_tie_heavy_pairs(dev, scoring, band, B):
     """Local goal ties and semiGlobal rim ties: a per-thread best reduced
     once must pick what the per-diagonal rules pick.  W = 640 runs a short
-    last warp."""
+    last warp; W = 4,224 and 8,320 run clusters of 2 and 4 CTAs (264 and
+    260 threads: short last warps), reduced across ranks."""
     rng = np.random.default_rng(100 * band + B)
     m_eff = bd.band_shapes(500, 800, band)[2]
     for dash in (False, True):
@@ -212,6 +216,100 @@ def test_band_kernels_on_tie_heavy_pairs(dev, scoring, band, B):
                     bd.parent_cells(got.parents, ql, tl, m_eff),
                     bd.parent_cells(want.parents, ql, tl, m_eff)), \
                     (mode, dash, dash_free)
+
+
+def _crossing_pairs(rng, B, n, m, lead, dev):
+    """Pairs whose optimal path wanders over a band of lanes: ONT-profile
+    reads of a target that starts with ``lead`` extra bases (the path sits
+    near lane W / 2 + lead / 2), each with a 150-base insertion and, later,
+    a 250-base deletion (it drifts ~75 lanes down, then ~125 up)."""
+    qa = np.zeros((B, n), np.uint8)
+    ta = np.zeros((B, m), np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        ln = int(rng.integers(n // 2, n - 200))
+        g = simulate.random_genome(ln + 300, rng)
+        a, c = ln // 3, 2 * ln // 3
+        body = np.concatenate([g[:a], simulate.random_genome(150, rng),
+                               g[a:c], g[c + 250:ln + 250]])
+        qry = simulate.mutate_read(body, rng)[:n]
+        tgt = np.concatenate([simulate.random_genome(lead, rng),
+                              g[:ln + 250]])[:m]
+        qa[b, :len(qry)], ql[b] = qry, len(qry)
+        ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
+        if b % 3 == 1:
+            qa[b, 5], ta[b, 9] = ord("-"), ord("-")
+    return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+
+
+def _cluster_case(dev, q, ql, t, tl, band, mode, dash_free, scoring):
+    """K2 and K4 on the cluster path against the plain version."""
+    assert bd.band_plan(band, q.shape[0], False).path == "cluster"
+    m_eff = bd.band_shapes(q.shape[1], t.shape[1], band)[2]
+    args = (q, ql, t, tl, *scoring)
+    kw = dict(band=band, mode=mode, dash_free=dash_free)
+    before = bd.align_scores_banded.path_launches["cluster"]
+    _same(bd.align_scores_banded(*args, **kw),
+          bd.align_scores_banded_plain(*args, **kw))
+    got = bd.align_scores_banded(*args, **kw, want_parents=True)
+    want = bd.align_scores_banded_plain(*args, **kw, want_parents=True)
+    assert bd.align_scores_banded.path_launches["cluster"] == before + 2
+    for f in ("score", "goal_i", "goal_j"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(bd.parent_cells(got.parents, ql, tl, m_eff),
+                       bd.parent_cells(want.parents, ql, tl, m_eff))
+
+
+# W = 4,224 (2 CTAs of 264 threads), 8,192 (2 x 512), 8,320 (4 x 260),
+# 24,576 (6 x 512), 32,768 (8 x 512): with an even cluster a CTA boundary
+# sits at lane W / 2, the main diagonal.
+CLUSTER_BANDS = [4224, 8192, 8320, 24576, 32768]
+
+
+@pytest.mark.parametrize("band", CLUSTER_BANDS)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_cluster_kernels_match_plain(dev, mode, band):
+    """Paths that cross the CTA boundary at the main diagonal both ways."""
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(band + mode), 6,
+                                   1800, 2400, 0, dev)
+    for dash_free in (False, True):
+        _cluster_case(dev, q, ql, t, tl, band, mode, dash_free, (1, -1, -1))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_cluster_kernels_odd_cluster(dev, mode):
+    """W = 25,088, the 50 kb reads' band: 7 CTAs of 448 threads, no
+    boundary at W / 2; a 3,700-base lead puts the path across the boundary
+    at lane 14,336 (rank 3 | rank 4)."""
+    assert bd.band_plan(25088, 1, False).segments()[4][0] == 14336
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(7 + mode), 4,
+                                   1800, 6000, 3700, dev)
+    for dash_free in (False, True):
+        _cluster_case(dev, q, ql, t, tl, 25088, mode, dash_free, (1, -1, -1))
+
+
+def test_band_cluster_more_clusters_than_the_card_holds(dev):
+    """B = 40 at W = 24,576: 240 CTAs of 512 threads, more than K4 (one CTA
+    per SM) holds at once: the clusters run in waves."""
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(40), 40, 1200,
+                                   1600, 0, dev)
+    for mode in (0, 1, 2):
+        _cluster_case(dev, q, ql, t, tl, 24576, mode, True, (1, -1, -1))
+
+
+def test_band_cluster_refused_launch_raises(dev, monkeypatch):
+    """A cluster the launcher refuses (16 CTAs: past the portable size)
+    raises in the wrapper; nothing falls back to another path."""
+    plan = bd.band_plan(32768, 1, False)
+    monkeypatch.setattr(bd, "band_plan", lambda W, B, p: dataclasses.replace(
+        plan, cluster=16, threads_per_cta=256))
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(1), 2, 600, 800, 0,
+                                   dev)
+    before = bd.align_scores_banded.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=32768)
+    assert bd.align_scores_banded.launches == before
 
 
 def test_band_kernel_ragged_last_cta(dev):

@@ -99,6 +99,44 @@ def test_device_time_merges_overlapping_intervals(smoke):
     assert top == [["k2", 2, 0.17], ["k1", 1, 0.01], ["k3", 1, 0.003]]
 
 
+def test_parents_err_chunked_counts_cells_that_differ(smoke):
+    """The 50 kb rows compare parent tensors chunk by chunk: a change of a
+    cell inside a read's matrix counts, a change outside it does not, and
+    the chunks see the cells the whole tensor shows."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(0, 256, (40, 3, 128)).astype(np.uint8))
+    ql = torch.tensor([100, 50, 0], dtype=torch.int32)
+    tl = torch.tensor([120, 60, 5], dtype=torch.int32)
+    assert smoke.parents_err_chunked(a, a.clone(), ql, tl, 256, rows=7) == 0
+    inside = bd.parent_cells(a, ql, tl, 256) != 255
+    b = a.clone()
+    b[30, 1] = 0          # diagonals 122-125: past read 1's last (110)
+    b[:, 2] = 0           # read 2 has no cell
+    assert smoke.parents_err_chunked(a, b, ql, tl, 256, rows=7) == 0
+    d, lane = 4 * 20 + 2, 64  # diagonal 82, lane 64 of read 0: i = 41
+    assert inside[d - 2, 0, lane]
+    b[20, 0, lane] ^= 0xff
+    err = smoke.parents_err_chunked(a, b, ql, tl, 256, rows=7)
+    assert err == int((bd.parent_cells(a, ql, tl, 256)
+                       != bd.parent_cells(b, ql, tl, 256)).sum()) >= 1
+
+
+def test_path_counts_reset_with_the_kernel_counts(smoke):
+    from bioinfo1_tpu_torch.ops import band as bd
+    counts = bd.align_scores_banded.path_launches
+    assert set(counts) == set(bd.PATHS)
+    counts["cluster"], counts["scratch"] = 5, 2
+    counters = smoke.reset_launches()
+    assert set(counters) == set(smoke.KERNELS)
+    assert all(v == 0 for v in counts.values())
+    wrapper, attr = counters["band_score_cluster"]
+    counts["cluster"] = 3
+    assert getattr(wrapper, attr) == 3
+    setattr(wrapper, attr, 0)
+    assert counts["cluster"] == 0
+
+
 def test_smoke_imports_no_jax_and_fails_without_cuda():
     code = ("import runpy, sys\n"
             "sys.argv = ['chip_smoke.py']\n"
