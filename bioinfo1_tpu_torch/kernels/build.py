@@ -52,9 +52,9 @@ _SIGNATURES = {
     # parents, mode, cluster, threads, out (int*): clusters resident at once
     "bioinfo1_band_cluster_occupancy": [_I, _I, _I, _I, _P],
     # parents, S4, B, W, goal_i, goal_j, score, q, qn, t, tm, mode, match,
-    # mismatch, gap, out, stream
+    # mismatch, gap, slab_rows, window (ops/trace.WALK_*), out, stream
     "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
-                              _I, _I, _I, _I, _P, _P],
+                              _I, _I, _I, _I, _I, _I, _P, _P],
     # q, n, t, m, q_len, t_len, B, mode, match, mismatch, gap, scratch,
     # out, use_smem, stream
     "bioinfo1_full_score": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,

@@ -19,7 +19,10 @@ on ``unpack_codes`` is its spec).
 
 ``walk_parents`` is the wrapper of kernel K5 (csrc/walk_parents.cu), which
 serves all three modes: CUDA tensors launch the kernel, CPU tensors take
-``walk_parents_plain``.
+``walk_parents_plain``.  The kernel walks each read with one warp out of
+shared memory, staging slabs of ``WALK_SLAB_ROWS`` parent rows x
+``WALK_WINDOW`` bytes round the walk one slab ahead
+(tests/test_torch_walk_plan.py replays walks over that geometry).
 """
 
 from __future__ import annotations
@@ -31,6 +34,16 @@ from bioinfo1_tpu_torch.kernels import build
 
 OP_M, OP_I, OP_D, OP_DONE = 0, 1, 2, 255
 _DASH = 45            # ord('-')
+
+# K5's staging geometry (csrc/walk_parents.cu).  A slab is K parent byte
+# rows (4K anti-diagonals); slab k + 1 is staged when the walk enters slab
+# k, so its window must hold every byte the walk can reach within 8K
+# diagonals: 4K lanes either side of the lane (a lane moves at most one
+# every two diagonals) and 8K q / t bytes below i - 1 / j - 1.  A window of
+# 8K + 16 bytes holds that with a 16-byte chunk of alignment slack; the
+# ring is 2 x (K + 2) x WALK_WINDOW bytes a warp (5,184 at K = 16).
+WALK_SLAB_ROWS = 16
+WALK_WINDOW = 8 * WALK_SLAB_ROWS + 16
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -131,6 +144,10 @@ def walk_parents(parents: torch.Tensor, goal_i: torch.Tensor,
                              f"{parents.device}")
     if S4 < 1 or q_bytes.shape[1] < 1 or t_bytes.shape[1] < 1:
         raise ValueError("walk_parents: empty parents, query or target")
+    if W % 16 or parents.data_ptr() % 16:
+        raise ValueError("walk_parents: parent rows must start on 16-byte "
+                         f"boundaries (W = {W}, data_ptr % 16 = "
+                         f"{parents.data_ptr() % 16})")
     out = torch.full((S4 + 1, B), 0xFF, dtype=torch.uint8,
                      device=parents.device)
     if B:
@@ -138,7 +155,8 @@ def walk_parents(parents: torch.Tensor, goal_i: torch.Tensor,
             walk_parents, "bioinfo1_walk_parents", parents.data_ptr(), S4, B,
             W, goal_i.data_ptr(), goal_j.data_ptr(), score.data_ptr(),
             q_bytes.data_ptr(), q_bytes.shape[1], t_bytes.data_ptr(),
-            t_bytes.shape[1], mode, match, mismatch, gap, out.data_ptr(),
+            t_bytes.shape[1], mode, match, mismatch, gap, WALK_SLAB_ROWS,
+            WALK_WINDOW, out.data_ptr(),
             torch.cuda.current_stream(parents.device).cuda_stream)
     return out
 

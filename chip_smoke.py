@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile-map | --lpt-trial]
+    python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -13,7 +13,8 @@ run):
      banded score + parents (parents compared on the cells they are
      defined on, ops/band.parent_cells), K5 traceback walk (on each K4
      parent tensor; K4 and K5 also at a band that covers the whole
-     matrix), K6 int32 probe.  K2 and K4 run on every dispatch path of
+     matrix; K5 timed with its parents out of L2 and in it), K6 int32
+     probe.  K2 and K4 run on every dispatch path of
      ops/band.band_plan, each row naming its path, lanes per thread,
      cluster size and threads per CTA: one warp per read (W = 128, 256;
      also with more reads than fill whole CTAs), several warps per read
@@ -22,7 +23,8 @@ run):
      dash_free settings on each.  Then K2 and K4 on the cluster path at
      the 50 kb reads' shape (11 reads of ~46 kb, W = 25088) against the
      plain version and the scratch kernel on the same inputs, the scratch
-     kernel timed too, and the clusters the card holds at once
+     kernel timed too, K5 on those parents against the plain walk, and
+     the clusters the card holds at once
      (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.
   2. the CLI's default score-only path at E. coli scale: a 4,641,652 bp
      synthetic genome (direct-address index on the card) and 2,048
@@ -62,6 +64,10 @@ run):
   With --lpt-trial phase 0 builds K2 / K4 with every lanes-per-thread
   variant, phase 1t times them at the phase-1 pairs (the table behind
   ops/band.WARP_LPT and WARPS_LPT), and the run ends there.
+  With --walk-trial phase 1w times K5 alone (cold / L2-warm, the 50 kb
+  parents, bench_torch's long-read rates) and the run ends there; it uses
+  nothing that K5's wrapper did not have before its redesign, so a copy
+  of this file run from an older tree's root times that tree's K5.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -109,6 +115,11 @@ N_STAGED_FASTA_READS = 512        # --bug-compat on FASTA (phase 2s)
 N_CPU_STAGED_READS = 32           # staged runs on the CPU (phase 3)
 N_LONG_READS = 16                 # 50 kb reads (phase 2L)
 CPU_STAGED_MAX_LEN = 4500
+# Phase 1 draws, from one generator: K1's rows at these (R, N), then the
+# (B, n, m) pairs of the kernel table's K2 / K4 / K5 rows (W = 256).
+CHAIN_SHAPES = ((512, 1536), (64, 16384), (64, 24576))
+WALK_PAIRS = (256, 4096, 6144)
+L2_FLUSH_BYTES = 256 << 20        # written between cold launches: > 5 x L2
 
 # Card peaks the bounds are stated against (NVIDIA's H100 SXM data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s of float32 outside the tensor cores is one
@@ -129,7 +140,10 @@ PEAK_INT32_PER_S = 67e12 / 2
 #   cell with parents (K4): the same 7, two compares and two selects for
 #     which of M, I, D gave the best (M > I > D), one shift-add of the code
 #     into the lane's byte: 12.
-#   step (K5): a dependent byte load per step; no instruction bound.
+#   step (K5): extract the 2-bit code (a shift and a mask), move i and j (two
+#     subtracts) and the next byte's offset (one add): 5.  A step's time is
+#     its place in a chain of dependent loads, which no count of operations
+#     bounds.
 #   trip (K6): the adds and maxes its source writes, 2 * ILP * UNROLL.
 NEEDED_OPS = {
     "lis_chain": 5,
@@ -137,7 +151,7 @@ NEEDED_OPS = {
     "band_score_cluster": bench_torch.NEEDED_OPS_PER_CELL,
     "full_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_parents": bench_torch.NEEDED_OPS_PER_CELL + 5,
-    "walk_parents": 0,
+    "walk_parents": 5,
     "int32_probe": bench_torch.probe.source_ops(1, 1),
 }
 
@@ -309,7 +323,7 @@ def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(1)
     rows = {name: [] for name in KERNELS}
 
-    for R, N in ((512, 1536), (64, 16384), (64, 24576)):
+    for R, N in CHAIN_SHAPES:
         f, r, cnt = chain_inputs(rng, R, N, dev)
         row = compare(f"lis_chain R={R} N={N}",
                       lambda: ch.lis_chain(f, r, cnt),
@@ -322,7 +336,7 @@ def phase_kernels(dev) -> dict:
         rows["lis_chain"].append(row)
 
     scoring = (1, -1, -1)
-    q, ql, t, tl = pair_inputs(rng, 256, 4096, 6144, dev)
+    q, ql, t, tl = pair_inputs(rng, *WALK_PAIRS, dev)
 
     def plan_of(B, W, want_parents):
         """Which kernel of csrc/band_score.cu the row ran on."""
@@ -404,13 +418,7 @@ def phase_kernels(dev) -> dict:
             f"walk W={W} B={B} n={qq.shape[1]} mode={mode}",
             lambda: tr.walk_parents(*walk_args),
             lambda: tr.walk_parents_plain(*walk_args), reps=3, keep=True)
-        # One dependent parent-byte load per step: the bytes the walk needs
-        # are its steps, its goals and the codes it writes.
-        steps = torch.from_numpy(tr.unpack_codes(codes.cpu().numpy())
-                                 != tr.OP_DONE).sum(dim=0)
-        wrow.update(work=int(steps.sum()), unit="steps",
-                    chain_steps=int(steps.max()),
-                    bytes=int(steps.sum()) + 12 * B + codes.numel())
+        wrow.update(walk_work(codes, B))
         rows["walk_parents"].append(wrow)
         return out.score
 
@@ -420,6 +428,7 @@ def phase_kernels(dev) -> dict:
                        (256, 128, 0), (256, 512, 0), (128, 1024, 0),
                        (32, 4096, 0), (16, 24576, 0)):
         parents_and_walk(*first(B), W, mode, True, 3 if W <= 256 else 1)
+    rows["walk_cache"] = walk_cache_rows(dev, q, ql, t, tl)
     del q, ql, t, tl
     # Small pairs: every mode and variant on the several-warps and the
     # scratch path; the ragged last CTA of the one-warp path.
@@ -462,22 +471,25 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     # The cluster path at the 50 kb reads' shape: the kernel table's row
     # for K2's cluster path.
-    k2_50k, k4_50k = band_rows_50k(rng, dev, scoring)
+    pairs = pairs_50k(rng, dev)
+    k2_50k, k4_50k = band_rows_50k(pairs, scoring)
     rows["band_score"].append(k2_50k)
     rows["band_score_cluster"].insert(0, k2_50k)
     rows["band_parents"].append(k4_50k)
+    rows["walk_parents"].append(walk_row_50k(pairs, scoring))
+    del pairs
+    torch.cuda.empty_cache()
     rows["cluster_occupancy"] = cluster_occupancy()
     return rows
 
 
-def band_rows_50k(rng, dev, scoring) -> list:
-    """K2 and K4 on the cluster path at the shape the 50 kb reads give
-    them (11 reads of ~46 kb against regions 1,500 bases longer, W =
-    25088: 7 CTAs of 448 threads), held to the plain version and to the
-    scratch kernel on the same inputs, with the scratch kernel's time
-    beside the kernel's: the time the cluster path replaces."""
-    from bioinfo1_tpu_torch.ops import band as bd
-    W, B, n, m = 25088, 11, 50000, 52000
+W_50K = 25088         # the 50 kb reads' band (7 CTAs of 448 threads)
+
+
+def pairs_50k(rng, dev) -> list:
+    """The shape the 50 kb reads give K2 / K4 / K5: 11 reads of ~46 kb
+    against regions 1,500 bases longer, (B, n) = (11, 50000), m = 52000."""
+    B, n, m = 11, 50000, 52000
     qa = np.zeros((B, n), np.uint8)
     ta = np.zeros((B, m), np.uint8)
     ql = np.zeros(B, np.int32)
@@ -488,8 +500,18 @@ def band_rows_50k(rng, dev, scoring) -> list:
         qry = sim.mutate_read(tgt[:ln], rng)[:n]
         qa[b, :len(qry)], ql[b] = qry, len(qry)
         ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
-    q, ql, t, tl = (torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl))
-    m_eff = bd.band_shapes(n, m, W)[2]
+    return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+
+
+def band_rows_50k(pairs, scoring) -> list:
+    """K2 and K4 on the cluster path at the 50 kb reads' shape (W_50K),
+    held to the plain version and to the scratch kernel on the same
+    inputs, with the scratch kernel's time beside the kernel's: the time
+    the cluster path replaces."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    q, ql, t, tl = pairs
+    W, (B, n) = W_50K, q.shape
+    m_eff = bd.band_shapes(n, t.shape[1], W)[2]
     planned = bd.band_plan
     out = []
     for parents in (False, True):
@@ -523,6 +545,45 @@ def band_rows_50k(rng, dev, scoring) -> list:
     return out
 
 
+def walk_work(codes, B: int) -> dict:
+    """What a walk needs: its steps (one dependent parent-byte load each),
+    the longest chain, and the bytes - the steps' parent bytes, the goals
+    and the codes it writes."""
+    from bioinfo1_tpu_torch.ops import trace as tr
+    steps = (tr.unpack_codes(codes.cpu().numpy()) != tr.OP_DONE).sum(axis=0)
+    return {"work": int(steps.sum()), "unit": "steps",
+            "chain_steps": int(steps.max()),
+            "bytes": int(steps.sum()) + 12 * B + codes.numel()}
+
+
+def walk_row_50k(pairs, scoring, plain: bool = True) -> dict:
+    """K5 on K4's cluster-path parents of the 50 kb reads' shape (W_50K;
+    7 GB of parents): against the plain walk, or, without ``plain``,
+    timed alone."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.ops import trace as tr
+    q, ql, t, tl = pairs
+    out = bd.align_scores_banded(q, ql, t, tl, *scoring, band=W_50K, mode=0,
+                                 dash_free=True, want_parents=True)
+    args = (out.parents, out.goal_i, out.goal_j, out.score, q, t, *scoring,
+            0)
+    name = f"walk W={W_50K} B={q.shape[0]} n={q.shape[1]} mode=0"
+    if plain:
+        row, codes = compare(name, lambda: tr.walk_parents(*args),
+                             lambda: tr.walk_parents_plain(*args), reps=3,
+                             keep=True)
+    else:
+        codes = tr.walk_parents(*args)
+        torch.cuda.synchronize()
+        row = {"call": name, "ms": cuda_ms(lambda: tr.walk_parents(*args),
+                                           3)}
+    row["parent_bytes"] = out.parents.numel()
+    row.update(walk_work(codes, q.shape[0]))
+    del out, args
+    torch.cuda.empty_cache()
+    return row
+
+
 def parents_err_chunked(a, b, q_lens, t_lens, m_eff, rows: int = 256):
     """The number of cells inside the matrix where two parent tensors
     differ, ``ops/band.parent_cells`` taken over chunks of byte rows (the
@@ -553,6 +614,138 @@ def cluster_occupancy() -> list:
                         "clusters_at_once": n.value,
                         "ctas_at_once": n.value * c})
     return out
+
+
+def walk_pairs(dev) -> list:
+    """Phase 1's pairs of the kernel table's K4 / K5 rows: the generator
+    replayed past K1's rows."""
+    rng = np.random.default_rng(1)
+    for R, N in CHAIN_SHAPES:
+        chain_inputs(rng, R, N, torch.device("cpu"))
+    return pair_inputs(rng, *WALK_PAIRS, dev)
+
+
+def walk_chain(codes, b: int, gi: int, gj: int, S4: int, B: int,
+               W: int) -> dict:
+    """The parent bytes the walk of read ``b`` reads, replayed on the host
+    from its packed codes: the steps, the distinct parent byte rows and
+    32-byte sectors they touch, and how often a step reads another sector
+    (another 128-byte line) than the step before it - the loads that can
+    hit neither L1 nor a register of the previous step."""
+    from bioinfo1_tpu_torch.ops import trace as tr
+    c = tr.unpack_codes(codes)[:, b]
+    c = c[c != tr.OP_DONE].astype(np.int64)
+    steps = len(c)
+    if not steps:
+        return {"steps": 0}
+    i = gi - np.concatenate([[0], np.cumsum((c == 0) | (c == 2))[:-1]])
+    j = gj - np.concatenate([[0], np.cumsum((c == 0) | (c == 1))[:-1]])
+    d = i + j
+    row = np.clip(d - 2, 0, 4 * S4 - 1) >> 2
+    lane = np.clip((j - i + W - (d & 1)) >> 1, 0, W - 1)
+    addr = (row * B + b) * W + lane
+    return {"steps": steps, "rows": len(np.unique(row)),
+            "sectors": len(np.unique(addr >> 5)),
+            "sector_changes": 1 + int((np.diff(addr >> 5) != 0).sum()),
+            "line_changes": 1 + int((np.diff(addr >> 7) != 0).sum()),
+            "lane_span": int(lane.max() - lane.min())}
+
+
+def walk_cache_rows(dev, q, ql, t, tl) -> list:
+    """K5 at the kernel table's shape (W = 256, global) with its parents
+    out of L2 and in it: on all reads (the parent tensor far larger than
+    the 50 MB L2) and on the first 32 (a tensor that fits), each timed
+    cold (L2_FLUSH_BYTES written before every launch; the median of 5)
+    and warm (after a launch that read the same parents).
+    ``ns_per_step`` divides a launch by the longest chain's steps (every
+    read walks at once); the longest chain's parent rows, sectors and
+    sector changes come from ``walk_chain``."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.ops import trace as tr
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    rows = []
+    for B in (q.shape[0], 32):
+        qq, qql, tt, ttl = (x[:B].contiguous() for x in (q, ql, t, tl))
+        out = bd.align_scores_banded(qq, qql, tt, ttl, 1, -1, -1, band=256,
+                                     mode=0, dash_free=True,
+                                     want_parents=True)
+        args = (out.parents, out.goal_i, out.goal_j, out.score, qq, tt,
+                1, -1, -1, 0)
+        codes = tr.walk_parents(*args)
+        for _ in range(5):      # the card's clocks up from idle first
+            tr.walk_parents(*args)
+        torch.cuda.synchronize()
+        cold = []
+        for rep in range(5):
+            flush.fill_(rep)
+            start.record()
+            tr.walk_parents(*args)
+            stop.record()
+            stop.synchronize()
+            cold.append(start.elapsed_time(stop))
+        tr.walk_parents(*args)
+        warm = cuda_ms(lambda: tr.walk_parents(*args), 5)
+        packed = codes.cpu().numpy()
+        steps = (tr.unpack_codes(packed) != tr.OP_DONE).sum(axis=0)
+        b = int(steps.argmax())
+        S4, _, W = out.parents.shape
+        chain = walk_chain(packed, b, int(out.goal_i[b]),
+                           int(out.goal_j[b]), S4, B, W)
+        cold_ms = sorted(cold)[len(cold) // 2]
+        rows.append({"call": f"walk W={W} B={B} n={q.shape[1]} mode=0",
+                     "parent_bytes": out.parents.numel(),
+                     "cold_ms": cold_ms, "cold_ms_each": cold,
+                     "warm_ms": warm, "chain": chain,
+                     "cold_ns_per_step": 1e6 * cold_ms / chain["steps"],
+                     "warm_ns_per_step": 1e6 * warm / chain["steps"]})
+        del out, args, codes
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_walk_trial(dev) -> dict:
+    """K5 alone, for a comparison of two trees in one call (run this file
+    from either tree's root): its cold / L2-warm rows (walk_cache_rows),
+    its time on the parents of the 50 kb reads' cluster shape (W =
+    25088, B = 11), the SASS census of its loops, and bench_torch's
+    long-read rates (20 kb score-only and -c, 50 kb) with a -c pass of the
+    20 kb reads under torch.profiler (device time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import trace as tr
+    from bioinfo1_tpu_torch.pipeline.mapper import MapperConfig
+    import sass_census as sass
+    res = {"phase": "1w",
+           "walk_cache": walk_cache_rows(dev, *walk_pairs(dev))}
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    res["walk_50k"] = walk_row_50k(pairs_50k(rng, dev), (1, -1, -1),
+                                   plain=False)
+    torch.cuda.empty_cache()
+    listing = build.sass()
+    res["sass"] = {name: sass.cell_loops(listing, name)[:3]
+                   for name in sass.functions(listing)
+                   if "walk_parents" in name}
+    genome = bench_torch.make_data(bench_torch.FULL)[0]
+    mapper = bench_torch.make_product_mapper(genome, dev)
+    res["longread"] = bench_torch.measure_longread(genome, mapper)
+    recs20 = sim.simulate_reads(genome, bench_torch.FULL.long_a,
+                                np.random.default_rng(bench_torch.SEED + 7))
+    mapper.cfg = MapperConfig(output_cigar=True)
+    before = tr.walk_parents.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.map_records(recs20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = device_time(prof)
+    res["longread_20k_cigar_profiled"] = {
+        "wall_s": wall, "device_busy_s": busy, "top_device": top,
+        "walk_launches": tr.walk_parents.launches - before}
+    return res
 
 
 def phase_lpt_trial(dev) -> dict:
@@ -608,12 +801,12 @@ def phase_lpt_trial(dev) -> dict:
 def issued_per_unit(listing: str) -> dict:
     """Integer instructions each kernel issues per unit of work, counted in
     its own SASS: the integer instructions of its largest innermost loop,
-    per pair for K1, per swept lane for K3, per trip (its add and max
-    instructions) for K6.  For K2 and K4 the kernel that serves the
-    table's row (W = 256, global, dash_free), and the cluster path's at the
-    50 kb reads' W = 25088: the integer instructions of its interior pair
-    loop over the 2 * LPT cells of a trip.  Reported beside NEEDED_OPS; no
-    bound uses it."""
+    per pair for K1, per swept lane for K3, per step for K5 (global mode's
+    step loop), per trip (its add and max instructions) for K6.  For K2
+    and K4 the kernel that serves the table's row (W = 256, global,
+    dash_free), and the cluster path's at the 50 kb reads' W = 25088: the
+    integer instructions of its interior pair loop over the 2 * LPT cells
+    of a trip.  Reported beside NEEDED_OPS; no bound uses it."""
     import sass_census as sass
     from bioinfo1_tpu_torch.ops import band as bd
 
@@ -632,7 +825,7 @@ def issued_per_unit(listing: str) -> dict:
             "band_parents_cluster": band(True, 25088, 11),
             "band_parents": band(True),
             "full_score": ints("full_score_kernel"),
-            "walk_parents": 0,
+            "walk_parents": sass.walk_step_loop(listing)["int_per_step"],
             "int32_probe":
                 bench_torch.probe_census(listing)["issued_per_trip"]}
 
@@ -1105,6 +1298,7 @@ def profile_cell(genome: str, recs, cfg) -> dict:
 def main() -> int:
     profile_map = "--profile-map" in sys.argv[1:]
     lpt_trial = "--lpt-trial" in sys.argv[1:]
+    walk_trial = "--walk-trial" in sys.argv[1:]
     if lpt_trial:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if not torch.cuda.is_available():
@@ -1142,6 +1336,9 @@ def main() -> int:
 
     if lpt_trial:
         emit(phase_lpt_trial(dev))
+        return 0
+    if walk_trial:
+        emit(phase_walk_trial(dev))
         return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})

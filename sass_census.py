@@ -23,7 +23,10 @@ code) that branches back into the code: those branches are no loops.
 The banded register kernels (csrc/band_score.cu ``band_reg_kernel``, on the
 one-warp, several-warps and cluster paths) hold two pair loops, border and
 interior; ``band_interior_loop`` finds the interior one, whose trip computes
-2 * LPT cells.
+2 * LPT cells.  The walk (csrc/walk_parents.cu ``walk_parents_kernel``)
+holds copy loops, a tail loop that stores codes and one step loop, the
+loop that reads shared memory and stores codes; ``walk_step_loop`` finds
+it, one step a trip.
 """
 
 from __future__ import annotations
@@ -176,6 +179,21 @@ def band_interior_loop(listing: str, needle: str, lpt: int) -> dict:
     row = dict(two[1])
     row["cells_per_trip"] = 2 * lpt
     row["int_per_cell"] = row["by_kind"].get("int", 0) / (2 * lpt)
+    return row
+
+
+def walk_step_loop(listing: str, local: bool = False) -> dict:
+    """Census of the walk kernel's step loop (template argument kLocal):
+    of its innermost loops the one that reads shared memory (LDS) and
+    stores codes (STG), one step a trip."""
+    instrs = function(listing, f"walk_parents_kernelILb{int(local)}E")
+    loops = [census(instrs, span) for span in innermost(instrs)]
+    step = [row for row in loops
+            if "STG" in row["by_op"] and "LDS" in row["by_op"]]
+    if len(step) != 1:
+        raise KeyError(f"{len(step)} step loops in the walk kernel")
+    row = dict(step[0])
+    row["int_per_step"] = row["by_kind"].get("int", 0)
     return row
 
 

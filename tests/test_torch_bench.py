@@ -237,3 +237,40 @@ def test_plan_needle_names_each_register_path():
             needle = sass.plan_needle(bd.band_plan(W, 11, parents), parents)
             assert needle == (f"band_reg_kernelILb{int(parents)}ELb1ELi0E"
                               f"Li8E{tail}")
+
+
+# The walk kernel in miniature: a copy loop (cp.async, LDGSTS), the step
+# loop, which reads a staged byte (LDS) and stores codes (STG), and a tail
+# loop that stores codes only.
+WALK_LISTING = (
+    "\t\tFunction : _ZN3foo19walk_parents_kernelILb0EEEvPKhiiiPh\n"
+    + _sass_lines(
+        [(0x0000, "", "S2R R0, SR_TID.X"),
+         (0x0010, "", "IMAD R4, R0, 0x10, R2"),
+         (0x0020, "", "LDGSTS.E.BYPASS.128 [R4], desc[UR4][R6.64]"),
+         (0x0030, "", "ISETP.GE.AND P0, PT, R4, R3, PT"),
+         (0x0040, "@!P0", "BRA 0x10"),
+         (0x0050, "", "LDS.U8 R8, [R9]"),
+         (0x0060, "", "SHF.R.U32.HI R8, RZ, R10, R8"),
+         (0x0070, "", "LOP3.LUT R8, R8, 0x3, RZ, 0xc0, !PT"),
+         (0x0080, "@!P1", "STG.E.U8 desc[UR4][R2.64], R8"),
+         (0x0090, "", "IMAD.IADD R9, R9, 0x1, R8"),
+         (0x00a0, "", "ISETP.GE.AND P0, PT, R9, R3, PT"),
+         (0x00b0, "@!P0", "BRA 0x50"),
+         (0x00c0, "", "STG.E.U8 desc[UR4][R2.64], R11"),
+         (0x00d0, "", "IADD3 R11, R11, 0x1, RZ"),
+         (0x00e0, "@!P0", "BRA 0xc0"),
+         (0x00f0, "", "EXIT"),
+         (0x0100, "", "BRA 0x100")])
+    + "\t\tFunction : _ZN3foo19walk_parents_kernelILb1EEEvPKhiiiPh\n"
+    + _sass_lines([(0x0000, "", "EXIT")]))
+
+
+def test_walk_step_loop_is_the_loop_that_stores_codes():
+    row = sass.walk_step_loop(WALK_LISTING)
+    assert (row["first"], row["last"]) == ("0x0050", "0x00b0")
+    # SHF, LOP3, IMAD and ISETP are integer; LDS, STG and BRA not.
+    assert row["int_per_step"] == row["by_kind"]["int"] == 4
+    # A kernel without a step loop is refused, not guessed at.
+    with pytest.raises(KeyError):
+        sass.walk_step_loop(WALK_LISTING, local=True)

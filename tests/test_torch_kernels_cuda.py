@@ -356,6 +356,115 @@ def test_band_parents_whole_matrix_matches_plain(dev, mode, scoring):
         assert torch.equal(getattr(got, f), getattr(full, f)), f
 
 
+def _walk_case(par, gi, gj, score, q, t, scoring, mode):
+    """K5 against the plain walk, exactly, on one launch."""
+    args = (par, gi, gj, score, q, t, *scoring, mode)
+    before = tr.walk_parents.launches
+    got = tr.walk_parents(*args)
+    assert tr.walk_parents.launches == before + 1
+    assert torch.equal(got, tr.walk_parents_plain(*args)), mode
+    return got
+
+
+# The register paths (128, 256, 4,096), the cluster path (19,968: 6 CTAs
+# of 416 threads) and the scratch path (32,896).
+WALK_BANDS = [128, 256, 4096, 19968, 32896]
+
+
+@pytest.mark.parametrize("band", WALK_BANDS)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_walk_kernel_matches_plain_on_every_band_path(dev, mode, band):
+    """K4's parents of every dispatch path; '-' bytes in a quarter of the
+    rows (local mode's free gaps) and an empty last row."""
+    q, ql, t, tl = _pairs(np.random.default_rng(30 + mode), 12, 600, 900,
+                          dev)
+    out = bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=band,
+                                 mode=mode, want_parents=True)
+    _walk_case(out.parents, out.goal_i, out.goal_j, out.score, q, t,
+               (1, -1, -1), mode)
+
+
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1), (1, -1, -1)])
+def test_walk_kernel_on_tie_heavy_pairs(dev, scoring, B):
+    """Two-letter pairs with '-' bytes, empty queries and targets, 1-tall
+    and 1-wide matrices, at W = 128 (paths that leave the band: the lane
+    clip at 0 and W - 1) and 640; gap >= 0 leaves most reads uncertified.
+    B = 33 is no multiple of the warps a block holds."""
+    rng = np.random.default_rng(200 + B)
+    for band in (128, 640):
+        for dash in (False, True):
+            q, ql, t, tl = _tie_pairs(rng, B, 500, 800, dash, dev)
+            for mode in (0, 1, 2):
+                out = bd.align_scores_banded(q, ql, t, tl, *scoring,
+                                             band=band, mode=mode,
+                                             want_parents=True)
+                _walk_case(out.parents, out.goal_i, out.goal_j, out.score,
+                           q, t, scoring, mode)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_walk_kernel_on_random_parents(dev, mode):
+    """Random parent bytes, a third of them 3 (a stuck walk emits 3 and
+    stays for all 4 * (S4 + 1) steps), some rows all 3, goals anywhere in
+    the matrix (past the last parent row too: the row clip at the goal),
+    scores <= 0, (0, 0) goals; B = 531 reads, no multiple of the warps a
+    block holds.  Local mode's cost can rise on gaps < 0 and walk below
+    row 0, where the lane drifts out of any staged window."""
+    rng = np.random.default_rng(300 + mode)
+    B, S4, W, qn, tm = 531, 24, 128, 150, 170
+    par = rng.integers(0, 256, (S4, B, W)).astype(np.uint8)
+    par[rng.random((S4, B, W)) < 0.1] = 0xFF
+    par[5:7] = 0xFF
+    gi = rng.integers(0, qn + 1, B).astype(np.int32)
+    gj = rng.integers(0, tm + 1, B).astype(np.int32)
+    gi[:3], gj[:3] = 0, 0
+    score = rng.integers(-2, 40, B).astype(np.int32)
+    letters = np.frombuffer(b"AC-", np.uint8)
+    q = letters[rng.integers(0, 3, (B, qn))]
+    t = letters[rng.integers(0, 3, (B, tm))]
+    args = [torch.from_numpy(x).to(dev) for x in (par, gi, gj, score, q, t)]
+    for scoring in ((1, -1, -1), (1, -1, 1), (2, -3, 0)):
+        _walk_case(*args, scoring, mode)
+
+
+def test_walk_kernel_long_chain(dev):
+    """One chain of >= 20,000 steps (two 22 kb reads at W = 512): some
+    350 slabs of one read, each staged while the one before is walked."""
+    rng = np.random.default_rng(50)
+    qa = np.zeros((2, 24000), np.uint8)
+    ta = np.zeros((2, 25000), np.uint8)
+    ql = np.zeros(2, np.int32)
+    for b in range(2):
+        tgt = simulate.random_genome(22000, rng)
+        qry = simulate.mutate_read(tgt, rng)[:24000]
+        qa[b, :len(qry)], ql[b], ta[b, :22000] = qry, len(qry), tgt
+    q, ql, t = (torch.from_numpy(x).to(dev) for x in (qa, ql, ta))
+    tl = torch.full((2,), 22000, dtype=torch.int32, device=dev)
+    for mode in (0, 1):
+        out = bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=512,
+                                     mode=mode, want_parents=True)
+        codes = _walk_case(out.parents, out.goal_i, out.goal_j, out.score,
+                           q, t, (1, -1, -1), mode)
+        steps = (tr.unpack_codes(codes.cpu().numpy()) != tr.OP_DONE).sum(0)
+        assert steps.max() >= 20000
+
+
+def test_walk_kernel_rejects_unaligned_parent_rows(dev):
+    """Slabs are copied in 16-byte chunks: parent rows off a 16-byte
+    boundary raise, launching nothing."""
+    n = torch.ones(2, dtype=torch.int32, device=dev)
+    qt = torch.zeros((2, 8), dtype=torch.uint8, device=dev)
+    base = torch.zeros(4 * 2 * 128 + 1, dtype=torch.uint8, device=dev)
+    before = tr.walk_parents.launches
+    for par in (base[1:].view(4, 2, 128),
+                torch.zeros((4, 2, 136), dtype=torch.uint8, device=dev)):
+        assert par.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte"):
+            tr.walk_parents(par, n, n, n, qt, qt, 1, -1, -1, 0)
+    assert tr.walk_parents.launches == before
+
+
 @pytest.mark.parametrize("shape,n_iter", [((256, 1024), 100), ((8, 128), 0),
                                           ((3, 5, 7), 7), ((1000,), 33)])
 def test_int32_probe_kernel_matches_plain(dev, shape, n_iter):

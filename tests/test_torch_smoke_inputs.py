@@ -82,6 +82,26 @@ def test_band_work_counts_matrix_cells_not_swept_lanes(smoke):
     assert set(smoke.NEEDED_OPS) == set(smoke.KERNELS)
 
 
+def test_walk_chain_replays_the_bytes_a_walk_reads(smoke):
+    """The host replay of a walk from its codes: its steps are the codes
+    before the first done, and it touches one parent row per 4 diagonals
+    at most, and a step reads a new 32-byte sector when it changes row or
+    crosses a sector boundary in its row."""
+    from bioinfo1_tpu_torch.ops import trace as tr
+    S4, B, W = 8, 2, 128
+    # Read 1 from (10, 9): 3 M, 1 I, 2 D, 1 M, then done.
+    codes = np.full((4 * (S4 + 1), B), tr.OP_DONE, np.uint8)
+    codes[:7, 1] = [0, 0, 0, 1, 2, 2, 0]
+    packed = tr.pack_codes(torch.from_numpy(codes)).numpy()
+    got = smoke.walk_chain(packed, 1, 10, 9, S4, B, W)
+    assert got["steps"] == 7
+    # Diagonals 19, 17, 15, 13, 12, 11, 10: rows 4, 3, 3, 2, 2, 2, 2, lane
+    # 63 but for the last (64: the next sector of row 2).
+    assert got["rows"] == 3 and got["lane_span"] == 1
+    assert got["sectors"] == got["sector_changes"] == 4
+    assert smoke.walk_chain(packed, 0, 5, 5, S4, B, W) == {"steps": 0}
+
+
 def test_device_time_merges_overlapping_intervals(smoke):
     cuda = torch.autograd.DeviceType.CUDA
     cpu = torch.autograd.DeviceType.CPU
