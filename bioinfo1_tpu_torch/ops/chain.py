@@ -9,18 +9,80 @@ endpoints are returned.
 ``lis_chain`` is the wrapper of kernel K1 (csrc/lis_chain.cu): CUDA tensors
 launch the kernel, CPU tensors take ``lis_chain_plain``, the plain PyTorch
 version (a Python loop over i in place of the JAX ``fori_loop``).
+
+K1 is a two-level DP over chunks of ``CHAIN_C`` matches: the predecessors
+of chunk k in finished chunks come from chunks [q_lo[k], k) only
+(``chunk_q_lo``, the kernel's rule on the host), then one warp scans the
+chunk's columns in order.  ``chain_plan`` picks where the kernel keeps a
+row's matches and states.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from bioinfo1_tpu_torch.kernels import build
 
 _GAP_CAP = 5000
 _MAX_N = 0xFFFF         # K1 packs the match index into 16 bits
+CHAIN_C = 32            # K1's chunk: one match per lane of a warp
+CHAIN_THREADS = 512     # threads per CTA (one CTA per row)
+# Storage paths of csrc/lis_chain.cu, by their C number: f, r, states and
+# prev in shared memory; f and r read from the inputs, states and prev in
+# shared memory; states and prev in global scratch rows.
+CHAIN_PATHS = ("shared", "state", "scratch")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How K1 runs a row of N matches: ``path`` (one of CHAIN_PATHS),
+    ``threads`` per CTA and the dynamic shared bytes of a CTA, as the C
+    launcher computes them (csrc/lis_chain.cu smem_bytes)."""
+
+    path: str
+    threads: int
+    smem_bytes: int
+
+
+def chain_plan(N: int) -> ChainPlan:
+    """K1's storage path for a match budget N: the first of shared (14 bytes
+    a match), state (6) and scratch (the chunk bounds only) whose shared
+    bytes fit build.SMEM_LIMIT.  Every path also holds q_lo, 2 bytes a
+    chunk in whole 16-byte groups."""
+    if not 1 <= N <= _MAX_N:
+        raise ValueError(f"chain_plan: match budget {N} outside [1, {_MAX_N}]")
+    n_pad = -(-N // CHAIN_C) * CHAIN_C
+    chunks = n_pad // CHAIN_C
+    head = 2 * (-(-chunks // 8) * 8)
+    for path, nbytes in (("shared", head + 14 * n_pad),
+                         ("state", head + 6 * n_pad)):
+        if nbytes <= build.SMEM_LIMIT:
+            return ChainPlan(path, CHAIN_THREADS, nbytes)
+    return ChainPlan("scratch", CHAIN_THREADS, head + 8 * chunks)
+
+
+def chunk_q_lo(f: np.ndarray, count: int) -> np.ndarray:
+    """K1's chunk rule for one row of query positions ``f`` with ``count``
+    valid: per chunk k of CHAIN_C matches, q_lo[k] = the first chunk q < k
+    with fmax[q] > fmin[k] - 5000 and fmin[q] < fmax[k] (f min / max over
+    the valid matches of a chunk), else k.  No chunk before q_lo[k] holds a
+    predecessor of a match in chunk k, whatever the order of f."""
+    n = int(count)
+    x = np.asarray(f[:n], np.int64)
+    bounds = [(x[q:q + CHAIN_C].min(), x[q:q + CHAIN_C].max())
+              for q in range(0, n, CHAIN_C)]
+    fmin = np.array([b[0] for b in bounds], np.int64)
+    fmax = np.array([b[1] for b in bounds], np.int64)
+    q_lo = np.arange(len(bounds))
+    for k in range(len(bounds)):
+        ok = np.flatnonzero((fmax[:k] > fmin[k] - _GAP_CAP)
+                            & (fmin[:k] < fmax[k]))
+        if len(ok):
+            q_lo[k] = ok[0]
+    return q_lo
 
 
 @dataclasses.dataclass
@@ -98,15 +160,20 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
                          f"packed-index range [1, {_MAX_N}]")
     out = torch.empty((5, R), dtype=torch.int32, device=f_pos.device)
     if R:
-        use_smem = 12 * N <= build.SMEM_LIMIT
-        packed = (None if use_smem else
-                  torch.empty((R, N), dtype=torch.int32, device=f_pos.device))
-        prev = torch.empty((R, N), dtype=torch.int32, device=f_pos.device)
+        plan = chain_plan(N)
+        packed = prev = None            # the scratch path's state rows
+        if plan.path == "scratch":
+            n_pad = -(-N // CHAIN_C) * CHAIN_C
+            packed = torch.empty((R, n_pad), dtype=torch.int32,
+                                 device=f_pos.device)
+            prev = torch.empty((R, n_pad), dtype=torch.int16,
+                               device=f_pos.device)
         build.launch(
             lis_chain, "bioinfo1_lis_chain",
             f_pos.data_ptr(), r_pos.data_ptr(), count.data_ptr(), R, N,
-            0 if packed is None else packed.data_ptr(), prev.data_ptr(),
-            out.data_ptr(), int(use_smem),
+            0 if packed is None else packed.data_ptr(),
+            0 if prev is None else prev.data_ptr(),
+            out.data_ptr(), CHAIN_PATHS.index(plan.path), plan.threads,
             torch.cuda.current_stream(f_pos.device).cuda_stream)
     return ChainResult(*out.unbind(0))
 

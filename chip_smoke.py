@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial]
+    python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
+                           --chain-trial | --chain-profile]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -8,8 +9,11 @@ run):
      limit; builds the CUDA kernels from bioinfo1_tpu_torch/csrc.
   1. every kernel against its plain PyTorch version on the card, exact
      integer equality, with both times and the work the function needs
-     (matrix cells, pairs, steps, bytes; the lanes a kernel sweeps beside
-     them): K1 LIS chain, K2 banded score, K3 full score, K4
+     (matrix cells, window pairs, steps, bytes; the lanes or pairs a
+     kernel sweeps beside them): K1 LIS chain (phase 1's rows at three
+     budgets, each row naming its ops/chain.chain_plan path, and the match
+     rows the 50 kb reads of phase 2L give it on the main path), K2 banded
+     score, K3 full score, K4
      banded score + parents (parents compared on the cells they are
      defined on, ops/band.parent_cells), K5 traceback walk (on each K4
      parent tensor; K4 and K5 also at a band that covers the whole
@@ -68,6 +72,11 @@ run):
   parents, bench_torch's long-read rates) and the run ends there; it uses
   nothing that K5's wrapper did not have before its redesign, so a copy
   of this file run from an older tree's root times that tree's K5.
+  With --chain-trial phase 1c times K1 alone in the same way (phase 1's
+  rows at R = 1 and 512, the 50 kb reads' rows, the pointer chase's share,
+  every threads-per-CTA choice) and the run ends there; --chain-profile
+  runs it on K1's measurement build, which also counts the SM clocks of
+  each phase of a one-row call.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -316,8 +325,6 @@ def band_work(q, ql, t, tl, W: int, want_parents: bool) -> dict:
 def phase_kernels(dev) -> dict:
     from bioinfo1_tpu_torch.ops import align as al
     from bioinfo1_tpu_torch.ops import band as bd
-    from bioinfo1_tpu_torch.kernels import build
-    from bioinfo1_tpu_torch.ops import chain as ch
     from bioinfo1_tpu_torch.ops import probe
     from bioinfo1_tpu_torch.ops import trace as tr
     rng = np.random.default_rng(1)
@@ -325,15 +332,8 @@ def phase_kernels(dev) -> dict:
 
     for R, N in CHAIN_SHAPES:
         f, r, cnt = chain_inputs(rng, R, N, dev)
-        row = compare(f"lis_chain R={R} N={N}",
-                      lambda: ch.lis_chain(f, r, cnt),
-                      lambda: ch.lis_chain_plain(f, r, cnt),
-                      reps=3 if N <= 1536 else 1)
-        row["smem"] = 12 * N <= build.SMEM_LIMIT
-        c = cnt.long()
-        row.update(work=int((c * (c - 1) // 2).sum()), unit="pairs",
-                   bytes=8 * R * N + 4 * R + 20 * R)
-        rows["lis_chain"].append(row)
+        rows["lis_chain"].append(chain_row(f"lis_chain R={R} N={N}", f, r,
+                                           cnt, 3 if N <= 1536 else 1))
 
     scoring = (1, -1, -1)
     q, ql, t, tl = pair_inputs(rng, *WALK_PAIRS, dev)
@@ -479,8 +479,23 @@ def phase_kernels(dev) -> dict:
     rows["walk_parents"].append(walk_row_50k(pairs, scoring))
     del pairs
     torch.cuda.empty_cache()
+    # K1 on the match rows the 50 kb reads give it on the main path.
+    f, r, cnt = chain_rows_50k(dev)[0]
+    rows["lis_chain"].append(chain_row(
+        f"lis_chain 50kb rows R={f.shape[0]} N={f.shape[1]}", f, r, cnt, 3))
     rows["cluster_occupancy"] = cluster_occupancy()
     return rows
+
+
+def chain_row(name: str, f, r, cnt, reps: int) -> dict:
+    """K1 against its plain version on one call's rows, with its plan
+    (ops/chain.chain_plan) and its work (chain_work)."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    row = compare(name, lambda: ch.lis_chain(f, r, cnt),
+                  lambda: ch.lis_chain_plain(f, r, cnt), reps=reps)
+    row.update(dataclasses.asdict(ch.chain_plan(f.shape[1])))
+    row.update(chain_work(f, r, cnt))
+    return row
 
 
 W_50K = 25088         # the 50 kb reads' band (7 CTAs of 448 threads)
@@ -748,6 +763,177 @@ def phase_walk_trial(dev) -> dict:
     return res
 
 
+def chain_rows_50k(dev) -> list:
+    """The match rows K1 gets on the main path from the 50 kb reads of
+    phase 2L (longread_records): the inputs of every ``lis_chain`` call of
+    one score-only ``Mapper.map_records`` run (the fused step's
+    find_matches_combined rows of both strands, budget retries included),
+    captured on the way in, largest match budget first."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    genome, recs = longread_records()
+    mapper = Mapper([("bench", genome)], MapperConfig(), device=dev)
+    calls, real = [], ch.lis_chain
+
+    def capture(f, r, cnt):
+        calls.append(tuple(x.clone() for x in (f, r, cnt)))
+        return real(f, r, cnt)
+
+    capture.launches = 0        # the wrapper counts on its module's name
+    ch.lis_chain = capture
+    try:
+        mapper.map_records(recs)
+    finally:
+        ch.lis_chain = real
+    del mapper
+    torch.cuda.empty_cache()
+    return sorted(calls, key=lambda c: (-c[0].shape[1], -c[0].shape[0]))
+
+
+def chain_work(f, r, cnt) -> dict:
+    """What a chain call needs: its window pairs (j < i with f_i - 5000 <
+    f_j < f_i, the pairs whose r test decides anything; counted in numpy),
+    all c (c - 1) / 2 pairs beside them, the longest row, and the bytes
+    (the valid matches' f and r read once, the counts, five int32 outputs
+    a row).  ``swept``: the pair tests of K1's cross phase, 32 columns
+    against every match of chunks [q_lo, k) (ops/chain.chunk_q_lo; None
+    on a tree without it)."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    q_lo_of = getattr(ch, "chunk_q_lo", None)
+    fa, ca = f.cpu().numpy(), cnt.cpu().numpy().clip(0, f.shape[1])
+    window, swept = 0, 0
+    for b in range(fa.shape[0]):
+        x = fa[b, :int(ca[b])].astype(np.int64)
+        if q_lo_of is not None:
+            q_lo = q_lo_of(x, len(x))
+            swept += 32 * 32 * int((np.arange(len(q_lo)) - q_lo).sum())
+        if len(x) < 2:
+            continue
+        if np.all(x[1:] >= x[:-1]):
+            # sorted: the j < i with f_j in (f_i - 5000, f_i)
+            lo = np.searchsorted(x, x - 4999, side="left")
+            hi = np.searchsorted(x, x, side="left")
+            window += int(np.clip(np.minimum(hi, np.arange(len(x)))
+                                  - lo, 0, None).sum())
+        else:
+            window += sum(int(((x[:i] > x[i] - 5000) & (x[:i] < x[i])).sum())
+                          for i in range(1, len(x)))
+    c = ca.astype(np.int64)
+    return {"work": window, "unit": "window pairs",
+            "all_pairs": int((c * (c - 1) // 2).sum()),
+            "swept": swept if q_lo_of is not None else None,
+            "longest_row": int(c.max()) if len(c) else 0,
+            "bytes": 8 * int(c.sum()) + 24 * len(c)}
+
+
+def chase_rows(N: int, dev) -> dict:
+    """Two rows of N matches that test the same pairs: "flat" (r falls as f
+    rises: no predecessor, a chain of 1, no pointer chase) and "chain" (f =
+    r = 1..N: every match extends the chain, a chase of N - 1 steps)."""
+    up = np.arange(1, N + 1, dtype=np.int32)[None, :]
+    cnt = torch.full((1,), N, dtype=torch.int32, device=dev)
+    rows = {"flat": (up, up[:, ::-1].copy()), "chain": (up, up)}
+    return {k: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in v] + [cnt] for k, v in rows.items()}
+
+
+def phase_chain_trial(dev) -> dict:
+    """K1 alone, for a comparison of two trees in one call (run this file
+    from either tree's root; it uses nothing that K1's wrapper did not
+    have before its redesign): its time per match at R = 1 and R = 512 for
+    N = 1536 (phase 1's rows, f spread over 20,000) and on the 50 kb
+    reads' rows (chain_rows_50k: the largest call, and its longest row
+    alone), the pointer chase's share (chase_rows at N = 1536 and at the
+    50 kb budget), each against the plain version; for every threads-per-
+    CTA choice the tree offers (ops/chain.CHAIN_THREADS, where it exists)
+    and the SASS census of the kernel's loops."""
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import chain as ch
+    import sass_census as sass
+    listing = build.sass()
+    if any("lis_chain_kernelILi" in n for n in sass.functions(listing)):
+        census = sass.chain_loops(listing)
+    else:                                   # the first design: one kernel
+        census = sass.cell_loops(listing, "lis_chain_kernel")[:3]
+    rng = np.random.default_rng(1)
+    table = chain_inputs(rng, *CHAIN_SHAPES[0], dev)
+    longest = int(table[2].argmax())
+    shapes = {"R=512 N=1536": table,
+              "R=1 N=1536": [x[longest:longest + 1].contiguous()
+                             for x in table]}
+    calls = chain_rows_50k(dev)
+    f50, r50, c50 = calls[0]
+    shapes[f"50kb R={f50.shape[0]} N={f50.shape[1]}"] = calls[0]
+    b = int(c50.argmax())
+    shapes[f"50kb R=1 N={f50.shape[1]}"] = [
+        x[b:b + 1].contiguous() for x in calls[0]]
+    for N in (1536, f50.shape[1]):
+        for name, rows in chase_rows(N, dev).items():
+            shapes[f"chase {name} N={N}"] = rows
+    kept = getattr(ch, "CHAIN_THREADS", None)
+    threads = (512, 256, 128) if kept is not None else (None,)
+    profile = chain_profile_reader()
+    rows = []
+    try:
+        for name, (f, r, cnt) in shapes.items():
+            work = chain_work(f, r, cnt)
+            want = ch.lis_chain_plain(f, r, cnt)
+            for t in threads:
+                if t is not None:
+                    ch.CHAIN_THREADS = t
+                got = ch.lis_chain(f, r, cnt)
+                t0 = time.perf_counter()       # the clocks up from idle
+                while time.perf_counter() - t0 < 0.2:
+                    ch.lis_chain(f, r, cnt)
+                    torch.cuda.synchronize()
+                ms = cuda_ms(lambda: ch.lis_chain(f, r, cnt), 5)
+                err = max_abs_err(got, want)
+                check(err == 0, f"chain trial {name}: kernel differs from "
+                                "its plain version")
+                row = {"call": name, "threads": t, "ms": ms,
+                       "us_per_match": 1e3 * ms / max(work["longest_row"], 1),
+                       "ns_per_window_pair": 1e6 * ms / max(work["work"], 1),
+                       "length_max": int(got.length.max()),
+                       "max_abs_err": err, **work}
+                if profile is not None and f.shape[0] == 1:
+                    profile()
+                    ch.lis_chain(f, r, cnt)
+                    torch.cuda.synchronize()
+                    row["profile"] = profile()
+                rows.append(row)
+    finally:
+        if kept is not None:
+            ch.CHAIN_THREADS = kept
+    return {"phase": "1c", "rows": rows,
+            "calls_50kb": [[list(c[0].shape), int(c[2].max())]
+                           for c in calls], "sass": census}
+
+
+def chain_profile_reader():
+    """With the measurement build of K1 (BIOINFO1_CHAIN_PROFILE among
+    BIOINFO1_NVCC_DEFINES, set by --chain-profile), a function that reads
+    and clears its counters: SM clocks by phase of block 0's row, its total
+    clocks and globaltimer ns (their ratio is the SM clock) and chunks.
+    Else None."""
+    import ctypes
+    from bioinfo1_tpu_torch.kernels import build
+    if "-DBIOINFO1_CHAIN_PROFILE" not in build.nvcc_flags():
+        return None
+    fn = build.library().bioinfo1_chain_profile
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    names = ("prologue", "cross", "fold", "serial", "store_barrier",
+             "end_of_row", "total", "ns", "chunks")
+
+    def read():
+        buf = (ctypes.c_ulonglong * len(names))()
+        check(fn(ctypes.addressof(buf)) == 0, "bioinfo1_chain_profile failed")
+        out = dict(zip(names, buf))
+        out["ghz"] = out["total"] / out["ns"] if out["ns"] else None
+        return out
+
+    return read
+
+
 def phase_lpt_trial(dev) -> dict:
     """K2 and K4 times at the phase-1 pairs for every choice of lanes per
     thread (LPT) on both register paths, global / local / semiGlobal,
@@ -800,8 +986,9 @@ def phase_lpt_trial(dev) -> dict:
 
 def issued_per_unit(listing: str) -> dict:
     """Integer instructions each kernel issues per unit of work, counted in
-    its own SASS: the integer instructions of its largest innermost loop,
-    per pair for K1, per swept lane for K3, per step for K5 (global mode's
+    its own SASS: for K1 the integer instructions of its cross loop per pair
+    (and of its serial loop per step, on each storage path), for K3 those
+    of its largest innermost loop per swept lane, per step for K5 (global mode's
     step loop), per trip (its add and max instructions) for K6.  For K2
     and K4 the kernel that serves the table's row (W = 256, global,
     dash_free), and the cluster path's at the 50 kb reads' W = 25088: the
@@ -819,7 +1006,11 @@ def issued_per_unit(listing: str) -> dict:
                                        sass.plan_needle(plan, parents),
                                        plan.lpt)["int_per_cell"]
 
-    return {"lis_chain": ints("lis_chain_kernel"),
+    chain = sass.chain_loops(listing)
+    return {"lis_chain": chain["shared"]["cross"]["int_per_pair"],
+            "lis_chain_serial_step": {
+                path: loops["serial"]["int_per_step"]
+                for path, loops in chain.items()},
             "band_score": band(False),
             "band_score_cluster": band(False, 25088, 11),
             "band_parents_cluster": band(True, 25088, 11),
@@ -1211,7 +1402,8 @@ def phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short) -> dict:
 def device_time(prof):
     """(busy seconds, top device events) of a torch.profiler run: busy is
     the union of the device intervals; top lists the 12 names with the most
-    device time as [name, launches, ms]."""
+    device time, then any kernel of the port (csrc/) below them, as [name,
+    launches, ms]."""
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us, end = 0.0, float("-inf")
@@ -1223,8 +1415,16 @@ def device_time(prof):
     for e in ev:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = top[:12] + [kv for kv in top[12:]
+                      if any(k in kv[0] for k in PORT_KERNELS)]
     return busy_us / 1e6, [[k, n, us / 1e3] for k, (n, us) in top]
+
+
+# Kernel function names of csrc/, as a profiler names their launches.
+PORT_KERNELS = ("lis_chain_kernel", "band_reg_kernel", "band_scratch_kernel",
+                "full_score_kernel", "walk_parents_kernel",
+                "int32_probe_kernel")
 
 
 def phase_profile(genome: str, recs) -> dict:
@@ -1299,8 +1499,12 @@ def main() -> int:
     profile_map = "--profile-map" in sys.argv[1:]
     lpt_trial = "--lpt-trial" in sys.argv[1:]
     walk_trial = "--walk-trial" in sys.argv[1:]
+    chain_profile = "--chain-profile" in sys.argv[1:]
+    chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
     if lpt_trial:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
+    if chain_profile:
+        os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_CHAIN_PROFILE"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
@@ -1339,6 +1543,9 @@ def main() -> int:
         return 0
     if walk_trial:
         emit(phase_walk_trial(dev))
+        return 0
+    if chain_trial:
+        emit(phase_chain_trial(dev))
         return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})

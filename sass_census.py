@@ -20,6 +20,11 @@ branch.  A shuffle under a mask the compiler cannot prove full gets an
 out-of-line handler (reached by ``BRA.DIV``, placed after the kernel's
 code) that branches back into the code: those branches are no loops.
 
+The chain kernel (csrc/lis_chain.cu ``lis_chain_kernel``, one instantiation
+per storage path of ops/chain.chain_plan) holds a cross loop, 8
+predecessors a trip, and a serial loop, one column of the chunk a trip
+(one REDUX, no memory access); ``chain_loops`` finds both.
+
 The banded register kernels (csrc/band_score.cu ``band_reg_kernel``, on the
 one-warp, several-warps and cluster paths) hold two pair loops, border and
 interior; ``band_interior_loop`` finds the interior one, whose trip computes
@@ -63,7 +68,10 @@ class Instr:
 
     @property
     def kind(self) -> str:
-        """int | memory | control | uniform | other."""
+        """int | memory | control | uniform | other (REDUX, a warp-wide
+        reduction, is other)."""
+        if self.op == "REDUX":
+            return "other"
         if self.op in _CONTROL:
             return "control"
         if self.op.startswith(_MEMORY):
@@ -195,6 +203,30 @@ def walk_step_loop(listing: str, local: bool = False) -> dict:
     row = dict(step[0])
     row["int_per_step"] = row["by_kind"].get("int", 0)
     return row
+
+
+def chain_loops(listing: str) -> dict:
+    """Census of the chain kernel's two DP loops for each storage path
+    (template argument kPath: 0 shared, 1 state, 2 scratch): the cross
+    loop, its largest innermost loop, whose trip tests 8 predecessors
+    against each lane's column (``int_per_pair``), and the serial loop, the
+    innermost loop with a REDUX and no memory access, one column a trip
+    (``int_per_step``)."""
+    out = {}
+    for path, name in enumerate(("shared", "state", "scratch")):
+        instrs = function(listing, f"lis_chain_kernelILi{path}E")
+        rows = [census(instrs, span) for span in innermost(instrs)]
+        cross = dict(max(rows, key=lambda r: r["instructions"]))
+        cross["int_per_pair"] = cross["by_kind"].get("int", 0) / 8
+        serial = [r for r in rows if "REDUX" in r["by_op"]
+                  and not r["by_kind"].get("memory")]
+        if len(serial) != 1:
+            raise KeyError(f"{len(serial)} serial loops in the chain "
+                           f"kernel ({name})")
+        step = dict(serial[0])
+        step["int_per_step"] = step["by_kind"].get("int", 0)
+        out[name] = {"cross": cross, "serial": step}
+    return out
 
 
 def main() -> int:

@@ -274,3 +274,52 @@ def test_walk_step_loop_is_the_loop_that_stores_codes():
     # A kernel without a step loop is refused, not guessed at.
     with pytest.raises(KeyError):
         sass.walk_step_loop(WALK_LISTING, local=True)
+
+
+def _chain_function(path):
+    """The chain kernel in miniature: a bounds loop (REDUX with a load), the
+    cross loop (the largest: 8 pairs a trip, 16 integer instructions), the
+    serial loop (one REDUX, no memory access; 5 integer instructions) and
+    the chase loop."""
+    cross = [(0x0100 + 0x10 * k, "", "IADD3 R7, R8, -R9, RZ")
+             for k in range(15)]
+    rows = ([(0x0000, "", "S2R R0, SR_TID.X"),
+             (0x0010, "", "LDG.E R4, desc[UR4][R2.64]"),
+             (0x0020, "", "REDUX.MIN.S32 UR5, R4"),
+             (0x0030, "", "ISETP.GE.AND P0, PT, R3, R4, PT"),
+             (0x0040, "@!P0", "BRA 0x10"),
+             (0x00f0, "", "LDS.128 R8, [R5]")]
+            + cross
+            + [(0x0200, "", "ISETP.GE.AND P0, PT, R3, R4, PT"),
+               (0x0210, "@!P0", "BRA 0xf0"),
+               (0x0220, "", "SEL R6, R7, RZ, P1"),
+               (0x0230, "", "REDUX.MAX UR6, R6"),
+               (0x0240, "", "VIMNMX.U32 R9, R6, R10, !PT"),
+               (0x0250, "", "LOP3.LUT R11, R9, 0xffff0000, RZ, 0xc0, !PT"),
+               (0x0260, "", "IADD3 R3, R3, 0x1, RZ"),
+               (0x0270, "", "ISETP.GE.AND P0, PT, R3, R4, PT"),
+               (0x0280, "@!P0", "BRA 0x220"),
+               (0x0290, "", "LDS.U16 R12, [R12]"),
+               (0x02a0, "", "ISETP.NE.AND P0, PT, R12, 0xffff, PT"),
+               (0x02b0, "@P0", "BRA 0x290"),
+               (0x02c0, "", "EXIT"),
+               (0x02d0, "", "BRA 0x2d0")])
+    return (f"\t\tFunction : _ZN3foo16lis_chain_kernelILi{path}EEvPKiS1_S1_ii"
+            "PjPtPi\n" + _sass_lines(rows))
+
+
+def test_chain_loops_finds_the_cross_and_the_serial_loop():
+    listing = "".join(_chain_function(p) for p in range(3))
+    got = sass.chain_loops(listing)
+    assert set(got) == {"shared", "state", "scratch"}
+    for row in got.values():
+        cross, serial = row["cross"], row["serial"]
+        assert (cross["first"], cross["last"]) == ("0x00f0", "0x0210")
+        assert cross["int_per_pair"] == 16 / 8       # 15 IADD3 + ISETP
+        assert (serial["first"], serial["last"]) == ("0x0220", "0x0280")
+        # SEL, VIMNMX, LOP3, IADD3, ISETP; REDUX is no integer instruction.
+        assert serial["int_per_step"] == 5
+        assert serial["by_op"]["REDUX"] == 1
+    # A listing without the kernel's three instantiations is refused.
+    with pytest.raises(KeyError):
+        sass.chain_loops(_chain_function(0))

@@ -1,0 +1,273 @@
+"""K1's two-level chain DP (csrc/lis_chain.cu), replayed on the CPU.
+
+K1 cuts a row into chunks of ``ops/chain.CHAIN_C`` = 32 matches.  For
+chunk k it takes the predecessors in finished chunks from chunks
+[q_lo[k], k) only (``chunk_q_lo``, the kernel's rule on the host), keeping
+the largest packed state (lis << 16) | (0xFFFF - j) of the qualifying j per
+column; then it resolves the chunk's columns in order, each from the
+earlier columns of its chunk and that cross-chunk best.  ``_replay`` does
+the same in numpy.  It must give every match the (lis, prev) of a direct
+O(N^2) DP, and endpoints equal to the JAX package's lax ``chain.lis_chain``
+and its Pallas kernel (``pallas_chain.lis_chain_sorted`` in interpret mode).
+``q_lo`` must never drop a qualifying pair.  ``chain_plan`` is held to its
+paths and their shared-memory bytes.
+
+Inputs: test_torch_chain._matches; repeat copies 4,999 and 5,000 apart;
+unsorted f; runs of equal f; counts 0, 1, 31, 32, 33 and N in one batch; N
+not a multiple of 32; an earliest-j tie across a chunk boundary; match
+rows of the JAX package's ``find_matches`` on simulated reads.  N <= 512.
+Tolerance: exact.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+from bioinfo1_tpu.index import builder as jbuilder
+from bioinfo1_tpu.ops import chain as jchain
+from bioinfo1_tpu.ops import match as jmatch
+from bioinfo1_tpu.ops import minimizer as jmz
+from bioinfo1_tpu.ops import pallas_chain as jpc
+from bioinfo1_tpu.pipeline import mapper as jmapper
+from bioinfo1_tpu.utils import simulate
+from bioinfo1_tpu_torch.kernels import build
+from bioinfo1_tpu_torch.ops import chain as tchain
+from test_torch_chain import FIELDS, _matches
+
+C = tchain.CHAIN_C
+GAP = 5000
+
+
+# ---- chain_plan -----------------------------------------------------------
+
+def _bytes(path, N):
+    """Shared bytes of a path by csrc/lis_chain.cu's layout."""
+    n_pad = -(-N // C) * C
+    head = 2 * (-(-(n_pad // C) // 8) * 8)
+    return head + {"shared": 14 * n_pad, "state": 6 * n_pad,
+                   "scratch": 8 * (n_pad // C)}[path]
+
+
+@pytest.mark.parametrize("N,path", [
+    (1, "shared"), (33, "shared"), (1536, "shared"), (16000, "shared"),
+    (16001, "state"), (24576, "state"), (36864, "state"), (37152, "state"),
+    (37153, "scratch"), (49152, "scratch"), (65535, "scratch")])
+def test_chain_plan_paths(N, path):
+    plan = tchain.chain_plan(N)
+    assert plan.path == path
+    assert plan.smem_bytes == _bytes(path, N) <= build.SMEM_LIMIT
+    assert plan.threads == tchain.CHAIN_THREADS
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+
+
+@pytest.mark.parametrize("last,path", [(16000, "shared"), (37152, "state")])
+def test_chain_plan_boundaries(last, path):
+    """Each path ends at the last N whose bytes fit SMEM_LIMIT: one more
+    match (another chunk) would not."""
+    assert _bytes(path, last) <= build.SMEM_LIMIT < _bytes(path, last + 1)
+    assert tchain.chain_plan(last + 1).path != path
+
+
+def test_chain_plan_rejects_budgets_outside_the_packed_range():
+    for N in (0, 0x10000):
+        with pytest.raises(ValueError):
+            tchain.chain_plan(N)
+
+
+# ---- the two-level replay ---------------------------------------------------
+
+def _qualifies(f, r, j, i):
+    """j is a predecessor of i (j, i may be arrays)."""
+    return ((f[j] < f[i]) & (f[i] - f[j] < GAP)
+            & (r[j] < r[i]) & (r[i] - r[j] < GAP))
+
+
+def _direct(f, r, n):
+    """Per-match (lis, prev) of the O(N^2) DP: prev = the earliest j of
+    the longest qualifying predecessors, -1 for none."""
+    lis = np.ones(n, np.int64)
+    prev = np.full(n, -1, np.int64)
+    for i in range(1, n):
+        js = np.arange(i)
+        ok = _qualifies(f, r, js, i)
+        if ok.any():
+            best = lis[js[ok]].max()
+            lis[i] = best + 1
+            prev[i] = js[ok][lis[js[ok]] == best][0]
+    return lis, prev
+
+
+def _replay(f, r, n):
+    """K1's two-level DP: chunks of C, the cross phase over chunks [q_lo,
+    k) with the full pair test, then the in-chunk scan, on packed states."""
+    packed = np.zeros(n, np.int64)
+    prev = np.full(n, -1, np.int64)
+    for k, q_lo in enumerate(tchain.chunk_q_lo(f, n)):
+        cols = np.arange(k * C, min(n, k * C + C))
+        js = np.arange(q_lo * C, k * C)
+        ok = _qualifies(f, r, js[:, None], cols[None, :])
+        ext = np.where(ok, packed[js][:, None], 0).max(axis=0, initial=0)
+        for t, i in enumerate(cols):
+            inner = cols[:t]
+            cand = np.where(_qualifies(f, r, inner, i), packed[inner], 0)
+            best = max(int(cand.max(initial=0)), int(ext[t]))
+            packed[i] = (((best >> 16) + 1) << 16) | (0xFFFF - i)
+            prev[i] = 0xFFFF - (best & 0xFFFF) if best else -1
+    return packed >> 16, prev
+
+
+def _endpoints(f, r, n, lis, prev):
+    """(length, q_start, q_end, t_start, t_end) from per-match (lis, prev);
+    a row without matches reads its endpoints from lane 0."""
+    if n == 0:
+        return 0, f[0], f[0], r[0], r[0]
+    end = int(np.argmax(lis[:n]))
+    root = end
+    while prev[root] >= 0:
+        root = prev[root]
+    return int(lis[end]), f[root], f[end], r[root], r[end]
+
+
+def _repeat_rows():
+    """Repeat copies exactly 4,999 apart (they chain) and 5,000 apart (they
+    do not), on both axes, with noise rows between."""
+    rng = np.random.default_rng(4)
+    B, N = 6, 256
+    f = np.zeros((B, N), np.int32)
+    r = np.zeros((B, N), np.int32)
+    cnt = np.full(B, N, np.int32)
+    for b in range(B):
+        step = (4999, 5000)[b % 2]
+        base = 1 + np.sort(rng.integers(0, 3 * step, N))
+        grid = 1 + step * (np.arange(N) // 8)      # 8 equal f per copy
+        f[b] = base if b < 4 else grid
+        r[b] = (base + step * rng.integers(0, 3, N) if b < 4
+                else grid + rng.integers(0, 2, N))
+    return f, r, cnt
+
+
+def _unsorted_rows():
+    f, r, cnt = _matches(21, B=8, N=300)
+    rng = np.random.default_rng(21)
+    for b in range(8):
+        perm = rng.permutation(int(cnt[b]))
+        f[b, :cnt[b]] = f[b, perm]
+        r[b, :cnt[b]] = r[b, perm]
+    return f, r, cnt
+
+
+def _equal_f_rows():
+    """Runs of 1-40 equal f, some straddling chunk boundaries."""
+    rng = np.random.default_rng(5)
+    B, N = 6, 320
+    f = np.zeros((B, N), np.int32)
+    r = np.zeros((B, N), np.int32)
+    for b in range(B):
+        runs = rng.integers(1, 41, N)
+        f[b] = np.repeat(1 + 700 * np.arange(N), runs)[:N]
+        r[b] = f[b] + rng.integers(0, 600, N)
+    return f, r, np.full(B, N, np.int32)
+
+
+def _count_rows():
+    """One batch with counts 0, 1, 31, 32, 33 and N = 96, junk past them."""
+    f, r, _ = _matches(22, B=6, N=96)
+    return f, r, np.array([0, 1, 31, 32, 33, 96], np.int32)
+
+
+def _ragged_rows():
+    """N = 200, not a multiple of 32."""
+    return _matches(23, B=8, N=200)
+
+
+def _tie_rows():
+    """Earliest-j ties: column 40 (chunk 1) has equal-lis predecessors 3
+    (chunk 0, the cross phase) and 35 (its own chunk, the serial scan);
+    column 70 (chunk 2) has 10 and 50 (chunks 0 and 1, split over two
+    warps).  The other matches chain with nothing (r falls as f rises)."""
+    N = 96
+    f = np.tile(10 + np.arange(N, dtype=np.int32), (2, 1))
+    r = np.tile(1_000_000 - 100 * np.arange(N, dtype=np.int32), (2, 1))
+    r[0, [3, 35, 40]] = (100, 100, 200)
+    r[1, [10, 50, 70]] = (1000, 1000, 1100)
+    return f, r, np.full(2, N, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _find_matches_rows():
+    """Both strands' match rows of the JAX package's find_matches for four
+    simulated ONT reads of 6-12 kb on a 60 kb genome (k = 13, w = 20: ~1
+    match in 30 bases, so a row's f spans several 5,000 windows), budget
+    512."""
+    k, w = 13, 20
+    rng = np.random.default_rng(12)
+    genome = simulate.random_genome(60000, rng)
+    index = jbuilder.build_index(genome.tobytes().decode("latin1"), k, w,
+                                 0.001)
+    recs = simulate.simulate_reads(genome, rng.integers(6000, 12000, 4), rng)
+    arr, lens = jmapper._pack_reads([s for _, s in recs], k + w - 1)
+    mres = jmz.minimize_batch(arr, lens, k, w)
+    rows = []
+    for strand in (index.fwd, index.rev):
+        got = jax.device_get(jmatch.find_matches(
+            mres.hashes, mres.pos, mres.dedup_keep, strand.hash_sorted,
+            strand.pos_sorted, 512))
+        rows.append((got.f_pos, got.r_pos, got.count))
+    return tuple(np.concatenate(x).astype(np.int32) for x in zip(*rows))
+
+
+CASES = {
+    "matches": lambda: _matches(20, B=10, N=384),
+    "repeats": _repeat_rows,
+    "unsorted": _unsorted_rows,
+    "equal_f": _equal_f_rows,
+    "counts": _count_rows,
+    "ragged": _ragged_rows,
+    "tie": _tie_rows,
+    "find_matches": _find_matches_rows,
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_replay_equals_direct_dp_and_jax(case):
+    f, r, cnt = CASES[case]()
+    lax = jax.device_get(jchain.lis_chain(f, r, cnt))
+    pallas = jax.device_get(jpc.lis_chain_sorted(f, r, cnt, interpret=True))
+    for b in range(f.shape[0]):
+        fb, rb = f[b].astype(np.int64), r[b].astype(np.int64)
+        n = int(cnt[b])
+        lis, prev = _replay(fb, rb, n)
+        want = _direct(fb, rb, n)
+        np.testing.assert_array_equal(lis, want[0], err_msg=f"lis row {b}")
+        np.testing.assert_array_equal(prev, want[1], err_msg=f"prev row {b}")
+        got = _endpoints(fb, rb, n, lis, prev)
+        for field, x in zip(FIELDS, got):
+            assert x == getattr(lax, field)[b], (field, b)
+            assert x == getattr(pallas, field)[b], (field, b)
+    if case == "tie":
+        assert list(lax.length) == [2, 2]
+        assert list(lax.q_start) == [f[0, 3], f[1, 10]]
+    if case == "find_matches":
+        assert int(lax.length.max()) > 20
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_q_lo_never_drops_a_qualifying_pair(case):
+    """Every predecessor j of i lies in i's chunk or in a chunk at or after
+    q_lo of i's chunk; and q_lo skips something on the long sorted rows."""
+    f, r, cnt = CASES[case]()
+    skipped = 0
+    for b in range(f.shape[0]):
+        fb, rb = f[b].astype(np.int64), r[b].astype(np.int64)
+        n = int(cnt[b])
+        q_lo = tchain.chunk_q_lo(fb, n)
+        assert len(q_lo) == -(-n // C)
+        assert all(0 <= q <= k for k, q in enumerate(q_lo))
+        skipped += int(q_lo.sum())
+        j, i = np.nonzero(np.triu(_qualifies(
+            fb, rb, np.arange(n)[:, None], np.arange(n)[None, :]), 1))
+        assert np.all(j // C >= q_lo[i // C]), (case, b)
+    if case in ("matches", "repeats", "equal_f", "find_matches"):
+        assert skipped > 0

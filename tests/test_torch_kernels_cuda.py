@@ -102,6 +102,78 @@ def test_lis_chain_kernel_from_several_threads(dev):
     assert not errors, errors
 
 
+def _chain_once(f, r, cnt):
+    """K1 on (f, r, cnt), held to the plain version bit for bit; it must
+    launch exactly once."""
+    before = ch.lis_chain.launches
+    got = ch.lis_chain(f, r, cnt)
+    torch.cuda.synchronize()
+    assert ch.lis_chain.launches == before + 1
+    _same(got, ch.lis_chain_plain(f, r, cnt))
+    return got
+
+
+# Small budgets, the last N of each ops/chain.chain_plan path and the first
+# of the next, the mapper's 50 kb budget (36,864) and the largest budgets.
+@pytest.mark.parametrize("N,path", [
+    (1, "shared"), (31, "shared"), (32, "shared"), (33, "shared"),
+    (1000, "shared"), (16000, "shared"), (16001, "state"),
+    (36864, "state"), (37152, "state"), (37153, "scratch"),
+    (40000, "scratch"), (65535, "scratch")])
+def test_lis_chain_kernel_every_path(dev, N, path):
+    assert ch.chain_plan(N).path == path
+    R = 6 if N <= 1000 else 2
+    f, r, cnt = (torch.from_numpy(x).to(dev)
+                 for x in _chain_rows(np.random.default_rng(N + 1), R, N))
+    _chain_once(f, r, cnt)
+
+
+def _special_chain_rows(case, N):
+    """Rows of <= 96 matches in a budget of N (so every chain_plan path
+    runs them): unsorted f, an all-empty batch, one row, runs of equal f,
+    and earliest-j ties across a chunk boundary (column 40 from 3 in the
+    cross phase and 35 in its own chunk; column 70 from 10 and 50, two
+    warps' chunks); elsewhere r falls as f rises, so nothing chains."""
+    rng = np.random.default_rng(len(case))
+    f = np.zeros((4, N), np.int32)
+    r = np.zeros((4, N), np.int32)
+    cnt = np.full(4, 96, np.int32)
+    n = 96
+    if case == "unsorted":
+        f[:, :n] = rng.integers(1, 20000, (4, n))
+        r[:, :n] = f[:, :n] + rng.integers(0, 3, (4, n)) * 4999
+    elif case == "empty_batch":
+        f[:, 0], r[:, 0] = 7, 9
+        cnt[:] = 0
+    elif case == "one_row":
+        f, r, _ = _chain_rows(rng, 2, N)
+        return f[1:], r[1:], np.array([min(N, 96)], np.int32)
+    elif case == "equal_f":
+        f[:, :n] = np.repeat(1 + 900 * np.arange(n), 12)[:n]
+        r[:, :n] = f[:, :n] + rng.integers(0, 800, (4, n))
+    else:                                       # cross_chunk_tie
+        f[:, :n] = 10 + np.arange(n)
+        r[:, :n] = 1_000_000 - 100 * np.arange(n)
+        r[0, [3, 35, 40]] = (100, 100, 200)
+        r[1, [10, 50, 70]] = (1000, 1000, 1100)
+    return f, r, cnt
+
+
+@pytest.mark.parametrize("N", [96, 20000, 40000])
+@pytest.mark.parametrize("case", ["unsorted", "empty_batch", "one_row",
+                                  "equal_f", "cross_chunk_tie"])
+def test_lis_chain_kernel_special_rows(dev, case, N):
+    f, r, cnt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in _special_chain_rows(case, N))
+    got = _chain_once(f, r, cnt)
+    if case == "cross_chunk_tie":
+        assert got.length[:2].tolist() == [2, 2]
+        assert got.q_start[:2].tolist() == [13, 20]
+    if case == "empty_batch":
+        assert got.length.tolist() == [0] * 4
+        assert got.q_start.tolist() == [7] * 4
+
+
 def _pairs(rng, B, n, m, dev):
     qa = np.zeros((B, n), np.uint8)
     ta = np.zeros((B, m), np.uint8)

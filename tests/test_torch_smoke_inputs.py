@@ -102,6 +102,30 @@ def test_walk_chain_replays_the_bytes_a_walk_reads(smoke):
     assert smoke.walk_chain(packed, 0, 5, 5, S4, B, W) == {"steps": 0}
 
 
+def test_chain_work_counts_window_pairs(smoke):
+    """K1's work is its window pairs (j < i, f_i - 5000 < f_j < f_i), on
+    sorted rows (by search) and unsorted ones alike; ``swept`` is what its
+    cross phase tests: 32 x 32 pairs for each chunk of [q_lo, k)."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    rng = np.random.default_rng(3)
+    f = np.sort(rng.integers(1, 12000, (3, 200)), axis=1).astype(np.int32)
+    f[2] = rng.permutation(f[2])
+    f[1, 50:60] = f[1, 50]                 # a run of equal f
+    cnt = np.array([0, 200, 150], np.int32)
+    want, swept = 0, 0
+    for b in range(3):
+        x = f[b, :cnt[b]].astype(np.int64)
+        want += sum(int(((x[:i] > x[i] - 5000) & (x[:i] < x[i])).sum())
+                    for i in range(len(x)))
+        q_lo = ch.chunk_q_lo(x, len(x))
+        swept += 1024 * int((np.arange(len(q_lo)) - q_lo).sum())
+    got = smoke.chain_work(*(torch.from_numpy(x) for x in (f, f, cnt)))
+    assert got["work"] == want > 0
+    assert got["swept"] == swept > 0
+    assert got["all_pairs"] == 200 * 199 // 2 + 150 * 149 // 2
+    assert (got["longest_row"], got["bytes"]) == (200, 8 * 350 + 24 * 3)
+
+
 def test_device_time_merges_overlapping_intervals(smoke):
     cuda = torch.autograd.DeviceType.CUDA
     cpu = torch.autograd.DeviceType.CPU
@@ -117,6 +141,11 @@ def test_device_time_merges_overlapping_intervals(smoke):
     busy, top = smoke.device_time(prof)
     assert busy == 130.0 / 1e6
     assert top == [["k2", 2, 0.17], ["k1", 1, 0.01], ["k3", 1, 0.003]]
+    # Past the 12 largest, the port's own kernels still show.
+    many = [ev(f"op{n}", 300.0 + n, 301.0 + n + n) for n in range(14)]
+    k1 = ev("void lis_chain_kernel<0>(int const*)", 400.0, 400.5)
+    _, top = smoke.device_time(SimpleNamespace(events=lambda: many + [k1]))
+    assert len(top) == 13 and top[-1][0] == k1.name
 
 
 def test_parents_err_chunked_counts_cells_that_differ(smoke):
