@@ -143,19 +143,8 @@ struct ReadBytes {
   }
 };
 
-template <int LPT>
-__device__ __forceinline__ int pick(const int (&v)[LPT], int k) {
-  int r = v[0];
-#pragma unroll
-  for (int x = 1; x < LPT; ++x) r = k == x ? v[x] : r;
-  return r;
-}
-
-// Goal candidates are ordered by cost, then smallest i, then smallest j.
-__device__ __forceinline__ bool goal_better(int c2, int i2, int j2, int c,
-                                            int i, int j) {
-  return c2 > c || (c2 == c && (i2 < i || (i2 == i && j2 < j)));
-}
+using bioinfo1::goal_better;
+using bioinfo1::pick;
 
 // The best (c, i, j) of a read's group, valid in thread 0 of the group.
 // Every thread of the group calls it; `x` holds 3 ints per warp.

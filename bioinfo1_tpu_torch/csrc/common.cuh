@@ -1,6 +1,7 @@
-// Shared helpers for the port's kernels: block-wide max reductions.
+// Shared helpers for the port's kernels: block-wide max reductions, and
+// two per-thread helpers of the register DP kernels (K2 / K4, K3).
 //
-// Every helper must be called by ALL threads of the block (blockDim.x a
+// Every reduction must be called by ALL threads of the block (blockDim.x a
 // multiple of 32, at most 1024): it uses full-warp shuffles and
 // __syncthreads.  `scratch` needs one slot per warp (32 slots).
 #pragma once
@@ -10,6 +11,23 @@
 #include <cuda_runtime.h>
 
 namespace bioinfo1 {
+
+// v[k] for a k known only at run time, by selects: indexing a register
+// array with it would move the array to local memory.
+template <int N>
+__device__ __forceinline__ int pick(const int (&v)[N], int k) {
+  int r = v[0];
+#pragma unroll
+  for (int x = 1; x < N; ++x) r = k == x ? v[x] : r;
+  return r;
+}
+
+// Goal candidates (cost c, cell (i, j)) are ordered by cost, then smaller
+// i, then smaller j.
+__device__ __forceinline__ bool goal_better(int c2, int i2, int j2, int c,
+                                            int i, int j) {
+  return c2 > c || (c2 == c && (i2 < i || (i2 == i && j2 < j)));
+}
 
 // T is unsigned or long long (the types __shfl_xor_sync takes here).
 template <typename T>

@@ -56,10 +56,10 @@ _SIGNATURES = {
     # mismatch, gap, slab_rows, window (ops/trace.WALK_*), out, stream
     "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
                               _I, _I, _I, _I, _I, _I, _P, _P],
-    # q, n, t, m, q_len, t_len, B, mode, match, mismatch, gap, scratch,
-    # out, use_smem, stream
+    # q, n, t, m, q_len, t_len, B, mode, match, mismatch, gap, row, out,
+    # lpt, warps_per_cta (ops/align.full_plan), stream
     "bioinfo1_full_score": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
-                            _P, _I, _P],
+                            _P, _I, _I, _P],
     # x, out, n, n_iter, step, stream
     "bioinfo1_int32_probe": [_P, _P, _L, _I, _I, _P],
 }

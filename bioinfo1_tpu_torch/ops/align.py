@@ -12,7 +12,11 @@ all three modes, score and goal cell only (PAF column 10 is the DP score):
 
 ``align_scores`` is the wrapper of kernel K3 (csrc/full_score.cu): CUDA
 tensors launch the kernel, CPU tensors take ``align_scores_plain`` (a
-Python loop over anti-diagonals in place of the JAX ``lax.scan``).
+Python loop over anti-diagonals in place of the JAX ``lax.scan``).  K3 runs
+one warp per read; a thread keeps ``FULL_LPT`` query rows in registers, so
+the warp sweeps the rows in strips of 32 * FULL_LPT, handing each strip's
+bottom row to the next through a per-read row buffer; ``full_plan`` gives
+the launch shape.
 """
 
 from __future__ import annotations
@@ -30,6 +34,16 @@ MODE_BY_NAME = {"global": MODE_GLOBAL, "local": MODE_LOCAL,
 
 _NEG = -(2**31) + 2   # pallas_align._NEG
 _DASH = 45            # ord('-')
+
+# K3's launch (csrc/full_score.cu): query rows a thread keeps in registers
+# (the kernel has 8, 16 and 32; chip_smoke.py --full-trial times them: 16
+# was fastest, or within 3% of 32, at every shape it times on an H100, and
+# 32 spills in local mode), and one warp per read, up to
+# FULL_MAX_WARPS_PER_CTA reads a CTA once the reads outnumber two per SM.
+FULL_LPTS = (8, 16, 32)
+FULL_LPT = 16
+FULL_MAX_WARPS_PER_CTA = 4
+SM_COUNT = 132                             # H100
 
 
 @dataclasses.dataclass
@@ -143,6 +157,34 @@ def _check_pair(fn: str, q_bytes, q_lens, t_bytes, t_lens) -> None:
         raise ValueError(f"{fn}: empty query or target width")
 
 
+@dataclasses.dataclass(frozen=True)
+class FullPlan:
+    lpt: int            # query rows a thread keeps
+    strip_rows: int     # rows a warp sweeps at once: 32 * lpt
+    strips: int         # strips of a read as wide as the call (n rows)
+    warps_per_cta: int  # reads a CTA, one warp each
+    grid: int           # CTAs
+
+    @property
+    def needs_row_buffer(self) -> bool:
+        """Whether a read may span two strips (the kernel then needs the
+        (B, m + 1) int32 row buffer)."""
+        return self.strips > 1
+
+
+def full_plan(n: int, B: int) -> FullPlan:
+    """K3's launch for B reads of width n: FULL_LPT rows a thread, strips
+    of 32 * FULL_LPT rows, one warp per read."""
+    if n < 1 or B < 1:
+        raise ValueError(f"full_plan: n={n}, B={B} (both must be >= 1)")
+    if FULL_LPT not in FULL_LPTS:
+        raise ValueError(f"full_plan: FULL_LPT={FULL_LPT} is none of "
+                         f"{FULL_LPTS}")
+    rows = 32 * FULL_LPT
+    wpc = max(1, min(FULL_MAX_WARPS_PER_CTA, B // (2 * SM_COUNT)))
+    return FullPlan(FULL_LPT, rows, -(-n // rows), wpc, -(-B // wpc))
+
+
 def align_scores(q_bytes: torch.Tensor, q_lens: torch.Tensor,
                  t_bytes: torch.Tensor, t_lens: torch.Tensor, mode: int,
                  match: int, mismatch: int, gap: int) -> AlignOut:
@@ -155,17 +197,20 @@ def align_scores(q_bytes: torch.Tensor, q_lens: torch.Tensor,
     _check_pair("align_scores", q_bytes, q_lens, t_bytes, t_lens)
     B, n = q_bytes.shape
     m = t_bytes.shape[1]
+    if mode not in MODE_BY_NAME.values():
+        raise ValueError(f"align_scores: mode {mode} is none of 0, 1, 2")
     out = torch.empty((3, B), dtype=torch.int32, device=q_bytes.device)
     if B:
-        use_smem = 12 * (n + 1) <= build.SMEM_LIMIT
-        scratch = (None if use_smem else torch.empty(
-            (B, 3, n + 1), dtype=torch.int32, device=q_bytes.device))
+        plan = full_plan(n, B)
+        row = (torch.empty((B, m + 1), dtype=torch.int32,
+                           device=q_bytes.device)
+               if plan.needs_row_buffer else None)
         build.launch(
             align_scores, "bioinfo1_full_score",
             q_bytes.data_ptr(), n, t_bytes.data_ptr(), m,
             q_lens.data_ptr(), t_lens.data_ptr(), B, mode, match, mismatch,
-            gap, 0 if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), int(use_smem),
+            gap, None if row is None else row.data_ptr(), out.data_ptr(),
+            plan.lpt, plan.warps_per_cta,
             torch.cuda.current_stream(q_bytes.device).cuda_stream)
     return AlignOut(*out.unbind(0))
 

@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
-                           --chain-trial | --chain-profile]
+                           --chain-trial | --chain-profile | --full-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -13,7 +13,10 @@ run):
      kernel sweeps beside them): K1 LIS chain (phase 1's rows at three
      budgets, each row naming its ops/chain.chain_plan path, and the match
      rows the 50 kb reads of phase 2L give it on the main path), K2 banded
-     score, K3 full score, K4
+     score, K3 full score (every mode on one strip, B = 64, n = 512, and
+     on several, B = 32, n = 4,608; a one-row last strip; more reads than
+     fill whole CTAs; each row naming its ops/align.full_plan rows per
+     thread, strips and warps per CTA), K4
      banded score + parents (parents compared on the cells they are
      defined on, ops/band.parent_cells), K5 traceback walk (on each K4
      parent tensor; K4 and K5 also at a band that covers the whole
@@ -40,6 +43,10 @@ run):
      K1, K4 and K5 must have launched, every PAF line must carry a cg:Z:
      CIGAR and >= 90% of reads >= 2 kb must map; the global run must have
      taken the parents realign pass.
+  2g. the CLI score-only where no exactness certificate exists, so every
+     bucket takes K3 in the fused step: -g 1 on the first 512 reads, -a
+     local -g 1 on the first 256; K1 and K3 must launch, K2 must not, no
+     realign pass may run, >= 90% of reads >= 2 kb must map; reads/s.
   2s. the staged host path through the CLI: -c -g 1 and -c -a local -g 1
      (no exactness certificate) on the first 256 reads, and --bug-compat
      on a FASTA copy of the first 512 (FASTA match nesting, score-only);
@@ -57,10 +64,11 @@ run):
      SM clock.
   3. with BIOINFO1_PLATFORM=cpu in subprocesses: the first 96 reads
      score-only and under -c, the first 32 under -c -a local, and 32
-     reads of at most 4.5 kb under -c -g 1 and (as FASTA) --bug-compat;
-     their PAF lines must equal the GPU runs' byte for byte.
+     reads of at most 4.5 kb under -g 1, -c -g 1 and (as FASTA)
+     --bug-compat; their PAF lines must equal the GPU runs' byte for byte.
   4. only with --profile-map: the map stage alone on phase 2's inputs,
-     score-only and -c, and on 32 reads of 50 kb score-only, fresh and
+     score-only and -c, on phase 2g's (-g 1, the first 512 reads), and on
+     32 reads of 50 kb score-only, fresh and
      with adapted bands, without and then under torch.profiler (device
      busy time and share, device time and launches by kernel, the
      mapper's counters of each pass).
@@ -76,7 +84,11 @@ run):
   rows at R = 1 and 512, the 50 kb reads' rows, the pointer chase's share,
   every threads-per-CTA choice) and the run ends there; --chain-profile
   runs it on K1's measurement build, which also counts the SM clocks of
-  each phase of a one-row call.
+  each phase of a one-row call.  With --full-trial phase 1f times K3
+  alone (the kernel table's shape, the 8 kb bucket's fused call captured
+  from a run like phase 2g's -g 1 one, 16 reads of 50 kb; every
+  rows-per-thread choice) and the run ends there; like the other trials
+  it runs from an older tree's root too.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -123,6 +135,8 @@ N_STAGED_READS = 256              # -c -g 1 (phase 2s)
 N_STAGED_FASTA_READS = 512        # --bug-compat on FASTA (phase 2s)
 N_CPU_STAGED_READS = 32           # staged runs on the CPU (phase 3)
 N_LONG_READS = 16                 # 50 kb reads (phase 2L)
+N_NOCERT_READS = 512              # -g 1 (phase 2g)
+N_NOCERT_LOCAL_READS = 256        # -a local -g 1 (phase 2g)
 CPU_STAGED_MAX_LEN = 4500
 # Phase 1 draws, from one generator: K1's rows at these (R, N), then the
 # (B, n, m) pairs of the kernel table's K2 / K4 / K5 rows (W = 256).
@@ -322,6 +336,37 @@ def band_work(q, ql, t, tl, W: int, want_parents: bool) -> dict:
             "swept": int((d_stop - 1).clamp(min=0).sum()) * W}
 
 
+def full_work(q, ql, t, tl) -> dict:
+    """What a full-matrix call needs: the cells inside each pair's matrix
+    (q_len x t_len) and its bytes (inputs and lengths read once, three
+    outputs written once), with the launch of ops/align.full_plan.
+    ``swept``: the cells K3 visits - per read and strip of S rows, S lanes
+    on each diagonal from r0 + 2 to min(r0 + S, q_len) + t_len, in whole
+    pairs of diagonals; on a tree without full_plan (one CTA per read),
+    its lanes 0..n on every diagonal up to q_len + t_len."""
+    from bioinfo1_tpu_torch.ops import align as al
+    B, n = q.shape
+    qa = ql.long().clamp(0, n).cpu().numpy()
+    ta = tl.long().clamp(0, t.shape[1]).cpu().numpy()
+    out = {"work": int((qa * ta).sum()), "unit": "cells",
+           "bytes": q.numel() + t.numel() + 20 * B}
+    plan_of = getattr(al, "full_plan", None)
+    if plan_of is None:
+        diags = np.clip(qa + ta - 1, 0, None)
+        out.update(swept=int(diags.sum()) * (n + 1), strip_rows=None)
+        return out
+    plan = plan_of(n, B)
+    S = plan.strip_rows
+    swept = 0
+    for a, b in zip(qa.tolist(), ta.tolist()):
+        for r0 in range(0, a if b > 0 else 0, S):
+            diags = min(S, a - r0) + b - 1
+            swept += S * (diags + (diags & 1))
+    out.update(swept=swept, strip_rows=S, lpt=plan.lpt, strips=plan.strips,
+               warps_per_cta=plan.warps_per_cta, grid=plan.grid)
+    return out
+
+
 def phase_kernels(dev) -> dict:
     from bioinfo1_tpu_torch.ops import align as al
     from bioinfo1_tpu_torch.ops import band as bd
@@ -447,18 +492,34 @@ def phase_kernels(dev) -> dict:
                               strict=True, mode=mode).all()),
               f"mode {mode}: the whole-matrix band does not certify")
 
-    q, ql, t, tl = pair_inputs(rng, 64, 512, 1024, dev)
-    for mode in (0, 1, 2):
+    # K3: one strip (the kernel table's shape, first row), several strips,
+    # a one-row last strip, and more reads than fill whole CTAs; every
+    # mode, gap < 0 and (on the several-strip pairs) gap > 0.
+    def full_row(pairs, mode, sc, reps):
+        qq, qql, tt, ttl = pairs
         row = compare(
-            f"full n=512 m=1024 mode={mode}",
-            lambda: al.align_scores(q, ql, t, tl, mode, *scoring),
-            lambda: al.align_scores_plain(q, ql, t, tl, mode, *scoring),
-            reps=5)
-        diags = (ql.long() + tl.long() - 1).clamp(min=0)
-        row.update(work=int((ql.long() * tl.long()).sum()), unit="cells",
-                   bytes=q.numel() + t.numel() + 20 * q.shape[0],
-                   swept=int(diags.sum()) * (q.shape[1] + 1))
+            f"full B={qq.shape[0]} n={qq.shape[1]} m={tt.shape[1]} "
+            f"mode={mode} scoring={list(sc)}",
+            lambda: al.align_scores(qq, qql, tt, ttl, mode, *sc),
+            lambda: al.align_scores_plain(qq, qql, tt, ttl, mode, *sc),
+            reps=reps)
+        row.update(full_work(qq, qql, tt, ttl))
         rows["full_score"].append(row)
+
+    table = pair_inputs(rng, 64, 512, 1024, dev)
+    strips = pair_inputs(rng, 32, 4608, 9216, dev)
+    S = al.full_plan(512, 64).strip_rows
+    one_row = pair_inputs(rng, 12, S + 1, S + 300, dev)
+    one_row[1][:4] = S + 1                     # the last strip: one row
+    ragged = pair_inputs(rng, 531, 300, 400, dev)
+    for mode in (0, 1, 2):
+        full_row(table, mode, scoring, 5)
+    for pairs in (strips, one_row, ragged):
+        for mode in (0, 1, 2):
+            for sc in ((scoring, (2, -3, 1)) if pairs is strips
+                       else (scoring,)):
+                full_row(pairs, mode, sc, 1)
+    del table, strips, one_row, ragged
 
     x = torch.from_numpy(rng.integers(-1000, 1000, (256, 1024))
                          .astype(np.int32)).to(dev)
@@ -501,10 +562,10 @@ def chain_row(name: str, f, r, cnt, reps: int) -> dict:
 W_50K = 25088         # the 50 kb reads' band (7 CTAs of 448 threads)
 
 
-def pairs_50k(rng, dev) -> list:
-    """The shape the 50 kb reads give K2 / K4 / K5: 11 reads of ~46 kb
+def pairs_50k(rng, dev, B: int = 11) -> list:
+    """The shape the 50 kb reads give K2 / K4 / K5: B = 11 reads of ~46 kb
     against regions 1,500 bases longer, (B, n) = (11, 50000), m = 52000."""
-    B, n, m = 11, 50000, 52000
+    n, m = 50000, 52000
     qa = np.zeros((B, n), np.uint8)
     ta = np.zeros((B, m), np.uint8)
     ql = np.zeros(B, np.int32)
@@ -934,6 +995,112 @@ def chain_profile_reader():
     return read
 
 
+def full_calls_g1(dev) -> list:
+    """The inputs of every ``align_scores`` call (K3) of one score-only -g 1
+    ``Mapper.map_records`` run on phase 2g's reads (the first 512 of phase
+    2, fresh bands; no certificate, so K3 scores every bucket), captured on
+    the way in: (pairs, mode, scoring), widest first."""
+    from bioinfo1_tpu_torch.ops import align as al
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    _ref, _paths, recs, genome, _short = write_inputs()
+    mapper = Mapper([("ecoli_like", genome)], MapperConfig(gap=1),
+                    device=dev)
+    calls, real = [], al.align_scores
+
+    def capture(q, ql, t, tl, mode, match, mismatch, gap):
+        calls.append(([x.clone() for x in (q, ql, t, tl)], mode,
+                      (match, mismatch, gap)))
+        return real(q, ql, t, tl, mode, match, mismatch, gap)
+
+    capture.launches = 0        # the wrapper counts on its module's name
+    al.align_scores = capture
+    try:
+        mapper.map_records(recs[:N_NOCERT_READS])
+    finally:
+        al.align_scores = real
+    del mapper
+    torch.cuda.empty_cache()
+    return sorted(calls, key=lambda c: (-c[0][0].shape[1],
+                                        -c[0][0].shape[0]))
+
+
+def phase_full_trial(dev) -> dict:
+    """K3 alone, for a comparison of two trees in one call (run this file
+    from either tree's root; it uses nothing that K3's wrapper did not
+    have before its redesign): its time at the kernel table's shape (B =
+    64, n = 512, m = 1024), at the widest call of a -g 1 run like phase
+    2g's (the 8 kb bucket's fused step, full_calls_g1) and on 16 reads of
+    50 kb (n = 50,000, m = 52,000, gap 1), for every rows-per-thread
+    choice the tree offers (ops/align.FULL_LPTS, where it exists), with
+    its bound, the SASS integer instructions per swept cell, the plain
+    version on the first two shapes (on the 50 kb reads the choices are
+    held to each other), and a digest of each output to compare the trees
+    by."""
+    import hashlib
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import align as al
+    listing = build.sass()
+    redesigned = hasattr(al, "full_plan")
+    lpts = al.FULL_LPTS if redesigned else (None,)
+    kept = getattr(al, "FULL_LPT", None)
+    issued = {lpt: full_issued(listing, 0, lpt or 0) for lpt in lpts}
+    rng = np.random.default_rng(1)
+    calls = full_calls_g1(dev)
+    (pairs8, mode8, sc8) = calls[0]
+    q8 = pairs8[0]
+    shapes = [
+        ("table B=64 n=512 m=1024", pair_inputs(rng, 64, 512, 1024, dev), 0,
+         (1, -1, -1), 5, True),
+        (f"8kb fused -g 1 B={q8.shape[0]} n={q8.shape[1]} "
+         f"m={pairs8[2].shape[1]}", pairs8, mode8, sc8, 3, True),
+        ("50kb B=16 n=50000 m=52000", pairs_50k(rng, dev, 16), 0, (1, -1, 1),
+         1, False)]
+    rows = []
+    try:
+        for name, pairs, mode, sc, reps, plain in shapes:
+            def run():
+                return al.align_scores(*pairs, mode, *sc)
+            want, plain_ms = None, None
+            if plain:
+                t0 = time.perf_counter()
+                want = al.align_scores_plain(*pairs, mode, *sc)
+                torch.cuda.synchronize()
+                plain_ms = 1e3 * (time.perf_counter() - t0)
+            for lpt in lpts:
+                if lpt is not None:
+                    al.FULL_LPT = lpt
+                got = run()
+                torch.cuda.synchronize()
+                if want is None:
+                    want = got
+                err = max_abs_err(got, want)
+                check(err == 0, f"full trial {name} LPT {lpt}: the kernel "
+                                "differs")
+                ms = cuda_ms(run, reps)
+                digest = hashlib.sha256(torch.stack(
+                    [got.score, got.goal_i, got.goal_j]).cpu().numpy()
+                    .tobytes()).hexdigest()[:16]
+                row = {"call": name, "mode": mode, "scoring": list(sc),
+                       "lpt": lpt, "ms": ms, "plain_ms": plain_ms,
+                       "max_abs_err": err, "digest": digest,
+                       **full_work(*pairs)}
+                row["bound_ms"], row["bound_by"] = bound(
+                    row, NEEDED_OPS["full_score"])
+                row["int_ops_per_unit"] = issued[lpt]
+                row["issued_over_needed"] = (
+                    issued[lpt] * row["swept"]
+                    / (NEEDED_OPS["full_score"] * row["work"]))
+                rows.append(row)
+            del want
+            torch.cuda.empty_cache()
+    finally:
+        if kept is not None:
+            al.FULL_LPT = kept
+    return {"phase": "1f", "redesigned": redesigned, "rows": rows,
+            "calls_g1": [[list(c[0][0].shape), c[0][2].shape[1], c[1]]
+                         for c in calls]}
+
+
 def phase_lpt_trial(dev) -> dict:
     """K2 and K4 times at the phase-1 pairs for every choice of lanes per
     thread (LPT) on both register paths, global / local / semiGlobal,
@@ -988,7 +1155,8 @@ def issued_per_unit(listing: str) -> dict:
     """Integer instructions each kernel issues per unit of work, counted in
     its own SASS: for K1 the integer instructions of its cross loop per pair
     (and of its serial loop per step, on each storage path), for K3 those
-    of its largest innermost loop per swept lane, per step for K5 (global mode's
+    of its interior pair loop per swept cell (global, the rows per thread of
+    ops/align.FULL_LPT), per step for K5 (global mode's
     step loop), per trip (its add and max instructions) for K6.  For K2
     and K4 the kernel that serves the table's row (W = 256, global,
     dash_free), and the cluster path's at the 50 kb reads' W = 25088: the
@@ -996,9 +1164,6 @@ def issued_per_unit(listing: str) -> dict:
     of a trip.  Reported beside NEEDED_OPS; no bound uses it."""
     import sass_census as sass
     from bioinfo1_tpu_torch.ops import band as bd
-
-    def ints(needle):
-        return sass.cell_loops(listing, needle)[0]["by_kind"].get("int", 0)
 
     def band(parents, W=256, B=256):
         plan = bd.band_plan(W, B, parents)
@@ -1015,10 +1180,24 @@ def issued_per_unit(listing: str) -> dict:
             "band_score_cluster": band(False, 25088, 11),
             "band_parents_cluster": band(True, 25088, 11),
             "band_parents": band(True),
-            "full_score": ints("full_score_kernel"),
+            "full_score": full_issued(listing),
             "walk_parents": sass.walk_step_loop(listing)["int_per_step"],
             "int32_probe":
                 bench_torch.probe_census(listing)["issued_per_trip"]}
+
+
+def full_issued(listing: str, mode: int = 0, lpt: int = 0):
+    """K3's integer instructions per swept cell: its interior pair loop's
+    (sass_census.full_interior_loop) at ``lpt`` rows a thread (0:
+    ops/align.FULL_LPT); on a tree whose K3 is one kernel without strips,
+    its largest innermost loop's per swept lane."""
+    import sass_census as sass
+    from bioinfo1_tpu_torch.ops import align as al
+    if not hasattr(al, "full_plan"):
+        return sass.cell_loops(listing, "full_score_kernel")[0][
+            "by_kind"].get("int", 0)
+    return sass.full_interior_loop(listing, mode,
+                                   lpt or al.FULL_LPT)["int_per_cell"]
 
 
 def bound(row: dict, ops: float) -> tuple:
@@ -1060,8 +1239,9 @@ def write_inputs():
             for name, s in rs:
                 fh.write(f">{name}\n{s}\n")
     paths = {}
-    for n in (N_READS, N_CIGAR_MODE_READS, N_STAGED_READS, N_CPU_READS,
-              N_CPU_LOCAL_READS):
+    for n in sorted({N_READS, N_CIGAR_MODE_READS, N_STAGED_READS,
+                     N_CPU_READS, N_CPU_LOCAL_READS, N_NOCERT_READS,
+                     N_NOCERT_LOCAL_READS}):
         paths[n] = os.path.join(WORK, f"reads{n}.fq")
         write_fq(paths[n], recs[:n])
     paths["fa"] = os.path.join(WORK, f"reads{N_STAGED_FASTA_READS}.fa")
@@ -1201,6 +1381,29 @@ def phase_cigar(ref, paths, recs) -> tuple:
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     return {"phase": "2c", "runs": runs, "launches": launches}, lines
+
+
+def phase_nocert(ref, paths, recs) -> tuple:
+    """Score-only where no exactness certificate exists (gap > 0): every
+    bucket's band is 0, so the fused step scores with K3 and no read is
+    rerouted to a realign pass; K2 must not launch."""
+    runs, lines = [], {}
+    for key, flags, n in (("g1", ["-g", "1"], N_NOCERT_READS),
+                          ("a_local_g1", ["-a", "local", "-g", "1"],
+                           N_NOCERT_LOCAL_READS)):
+        row, out = run_cli(ref, paths[n], recs[:n], flags, f"gpu_{key}.paf",
+                           ("lis_chain", "full_score"))
+        m = row["mapper"]
+        check(row["launches"]["band_score"] == 0,
+              f"{flags}: K2 launched without a certificate")
+        check(m["realign_batches"] == 0, f"{flags}: a realign pass ran")
+        check(m["t_fused_s"] > 0, f"{flags}: no fused batch ran")
+        del row["phase"]
+        runs.append(row)
+        lines[key] = out
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    return {"phase": "2g", "runs": runs, "launches": launches}, lines
 
 
 def phase_staged(ref, paths, recs) -> tuple:
@@ -1361,6 +1564,7 @@ def phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short) -> dict:
             ("c", ["-c"], paths[N_CPU_READS], None),
             ("c_a_local", ["-c", "-a", "local"], paths[N_CPU_LOCAL_READS],
              None),
+            ("g1", ["-g", "1"], paths["cpu_staged_fq"], staged),
             ("c_g1", ["-c", "-g", "1"], paths["cpu_staged_fq"], staged),
             ("bug_compat_fa", ["--bug-compat"], paths["cpu_staged_fa"],
              staged)):
@@ -1429,7 +1633,8 @@ PORT_KERNELS = ("lis_chain_kernel", "band_reg_kernel", "band_scratch_kernel",
 
 def phase_profile(genome: str, recs) -> dict:
     """The map stage alone, with the index resident, for each cell
-    (score-only, and -c global): a fresh mapper's first pass (band
+    (score-only, -c global, score-only -g 1 on the first 512 reads, 50 kb
+    score-only): a fresh mapper's first pass (band
     adaptation from scratch, as one CLI run) and its second pass (bands
     adapted).  Mapper A runs both passes without the profiler (wall
     times); mapper B runs them under torch.profiler, and each of its passes
@@ -1443,6 +1648,9 @@ def phase_profile(genome: str, recs) -> dict:
             "score": profile_cell(genome, recs, MapperConfig()),
             "cigar": profile_cell(genome, recs,
                                   MapperConfig(output_cigar=True)),
+            # No certificate: K3 scores every bucket (phase 2g's cell).
+            "score_g1": profile_cell(genome, recs[:N_NOCERT_READS],
+                                     MapperConfig(gap=1)),
             "longread_50k": profile_cell(genome, recs50, MapperConfig())}
 
 
@@ -1501,6 +1709,7 @@ def main() -> int:
     walk_trial = "--walk-trial" in sys.argv[1:]
     chain_profile = "--chain-profile" in sys.argv[1:]
     chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
+    full_trial = "--full-trial" in sys.argv[1:]
     if lpt_trial:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if chain_profile:
@@ -1547,6 +1756,9 @@ def main() -> int:
     if chain_trial:
         emit(phase_chain_trial(dev))
         return 0
+    if full_trial:
+        emit(phase_full_trial(dev))
+        return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})
     listing = build.sass()
@@ -1561,9 +1773,11 @@ def main() -> int:
     emit(p2)
     p2c, gpu_lines = phase_cigar(ref, paths, recs)
     emit(p2c)
+    p2g, nocert_lines = phase_nocert(ref, paths, recs)
+    emit(p2g)
     p2s, staged_lines = phase_staged(ref, paths, recs)
     emit(p2s)
-    gpu_lines.update(staged_lines, score=score_lines)
+    gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
     p2l = phase_longread(dev)
     emit(p2l)
     p2r = phase_repeat_and_roofline(dev)
@@ -1607,6 +1821,7 @@ def main() -> int:
                                           or main_row["work"])
                           / (needed[name] * main_row["work"])
                           if needed[name] else None,
+                      "nocert_launches": p2g["launches"][name],
                       "staged_launches": p2s["launches"][name],
                       "repeat_launches": p2r["launches"][name]})
     emit({"kernels": table})

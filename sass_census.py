@@ -20,7 +20,11 @@ branch.  A shuffle under a mask the compiler cannot prove full gets an
 out-of-line handler (reached by ``BRA.DIV``, placed after the kernel's
 code) that branches back into the code: those branches are no loops.
 
-The chain kernel (csrc/lis_chain.cu ``lis_chain_kernel``, one instantiation
+The full-matrix kernel (csrc/full_score.cu ``full_score_kernel``, one
+instantiation per mode and rows per thread) holds, per strip, pair loops
+that shuffle: border, interior and, in local mode, a border tail;
+``full_interior_loop`` finds the interior one, whose trip computes 2 * LPT
+cells.  The chain kernel (csrc/lis_chain.cu ``lis_chain_kernel``, one instantiation
 per storage path of ops/chain.chain_plan) holds a cross loop, 8
 predecessors a trip, and a serial loop, one column of the chunk a trip
 (one REDUX, no memory access); ``chain_loops`` finds both.
@@ -202,6 +206,25 @@ def walk_step_loop(listing: str, local: bool = False) -> dict:
         raise KeyError(f"{len(step)} step loops in the walk kernel")
     row = dict(step[0])
     row["int_per_step"] = row["by_kind"].get("int", 0)
+    return row
+
+
+def full_interior_loop(listing: str, mode: int, lpt: int) -> dict:
+    """Census of K3's interior pair loop (csrc/full_score.cu
+    ``full_score_kernel``, template arguments kMode, LPT): of the
+    innermost loops that shuffle (the pair loops of a strip: border,
+    interior and, in local mode, the tail) the one with the fewest
+    instructions.  A trip is two diagonals of ``lpt`` rows, so
+    ``int_per_cell`` = integer instructions / (2 * lpt)."""
+    instrs = function(listing, f"full_score_kernelILi{mode}ELi{lpt}E")
+    rows = [census(instrs, span) for span in innermost(instrs)]
+    pairs = [r for r in rows if r["by_op"].get("SHFL", 0) >= 4]
+    if not pairs:
+        raise KeyError(f"no pair loop in K3 (mode {mode}, LPT {lpt})")
+    row = dict(min(pairs, key=lambda r: r["instructions"]))
+    row["pair_loops"] = len(pairs)
+    row["cells_per_trip"] = 2 * lpt
+    row["int_per_cell"] = row["by_kind"].get("int", 0) / (2 * lpt)
     return row
 
 

@@ -554,11 +554,79 @@ def test_int32_probe_kernel_matches_plain(dev, shape, n_iter):
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
-@pytest.mark.parametrize("scoring", [(1, -1, -1), (2, -3, 1)])
+@pytest.mark.parametrize("scoring", [(1, -1, -1), (2, -3, 1), (1, -1, 0)])
 def test_full_kernel_matches_plain(dev, mode, scoring):
     q, ql, t, tl = _pairs(np.random.default_rng(7), 16, 300, 500, dev)
     _same(al.align_scores(q, ql, t, tl, mode, *scoring),
           al.align_scores_plain(q, ql, t, tl, mode, *scoring))
+
+
+def _strip_pairs(rng, B, n, m, S, dev):
+    """Pairs for K3's strips: tie-heavy two-letter rows with '-' bytes at
+    the thread and strip edges (rows LPT, S and S + 1), the edge rows
+    (q_len + t_len in {0, 1, 2}, q_len = 0, t_len = 0), a one-row last
+    strip (q_len = S + 1) and rows just past every multiple of S."""
+    q, ql, t, tl = (x.cpu().numpy() for x in _tie_pairs(rng, B, n, m, True,
+                                                         "cpu"))
+    edge = [(0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (0, 2), (n, 0), (0, m),
+            (min(n, S + 1), m), (n, m)]
+    edge += [(min(n, k * S + 1), m - k) for k in range(1, 4)]
+    for b, (x, y) in enumerate(edge[:B - 2]):
+        ql[b + 2], tl[b + 2] = x, y
+    lpt = S // 32
+    for r in (lpt - 1, lpt, S - 1, S, S + 1):
+        if r < n:
+            q[1::2, r] = ord("-")
+    t[::3, min(S, m - 1)] = ord("-")
+    return [torch.from_numpy(x).to(dev) for x in (q, ql, t, tl)]
+
+
+@pytest.mark.parametrize("width", ["S-1", "S", "S+1", "3S+5"])
+@pytest.mark.parametrize("lpt", al.FULL_LPTS)
+def test_full_kernel_every_strip_count(dev, monkeypatch, lpt, width):
+    """K3 on one strip, exactly one, one row past it and four strips, at
+    every rows-per-thread choice, every mode, scorings with gap < 0, gap
+    > 0 (positive borders) and gap 0, against the plain version; one
+    launch a call."""
+    monkeypatch.setattr(al, "FULL_LPT", lpt)
+    S = 32 * lpt
+    n = {"S-1": S - 1, "S": S, "S+1": S + 1, "3S+5": 3 * S + 5}[width]
+    q, ql, t, tl = _strip_pairs(np.random.default_rng(n), 17, n, n + 40, S,
+                                dev)
+    assert al.full_plan(n, 17).strips == -(-n // S)
+    for mode in (0, 1, 2):
+        for scoring in ((1, -1, -1), (2, -3, 1), (1, -1, 0)):
+            before = al.align_scores.launches
+            got = al.align_scores(q, ql, t, tl, mode, *scoring)
+            assert al.align_scores.launches == before + 1
+            _same(got, al.align_scores_plain(q, ql, t, tl, mode, *scoring))
+
+
+@pytest.mark.parametrize("B,sm_count", [(7, 1), (531, al.SM_COUNT)])
+def test_full_kernel_ragged_last_cta(dev, monkeypatch, B, sm_count):
+    """More reads than fill whole CTAs: the last CTA's spare warps leave
+    at once, every read is served (7 reads at 3 a CTA with the SM count
+    set to 1; 531 at 2 a CTA on the H100's)."""
+    monkeypatch.setattr(al, "SM_COUNT", sm_count)
+    plan = al.full_plan(600, B)
+    assert plan.warps_per_cta > 1 and B % plan.warps_per_cta
+    q, ql, t, tl = _strip_pairs(np.random.default_rng(B), B, 600, 640,
+                                32 * plan.lpt, dev)
+    for mode in (0, 1, 2):
+        _same(al.align_scores(q, ql, t, tl, mode, 1, -1, -1),
+              al.align_scores_plain(q, ql, t, tl, mode, 1, -1, -1))
+
+
+def test_full_kernel_refused_launch_raises(dev, monkeypatch):
+    """A launch the C entry point refuses (here: rows per thread it was
+    not built for) raises and counts nothing; nothing falls back."""
+    q, ql, t, tl = _pairs(np.random.default_rng(3), 4, 64, 80, dev)
+    monkeypatch.setattr(al, "FULL_LPTS", (8, 16, 32, 64))
+    monkeypatch.setattr(al, "FULL_LPT", 64)
+    before = al.align_scores.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        al.align_scores(q, ql, t, tl, 0, 1, -1, -1)
+    assert al.align_scores.launches == before
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -631,7 +699,8 @@ def test_map_step_cigar_cuda_matches_cpu(dev, mode):
 @pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],
                                    ["-c", "-a", "semiGlobal"],
                                    ["-c", "-g", "1"],
-                                   ["-c", "-a", "semiGlobal", "-g", "1"]])
+                                   ["-c", "-a", "semiGlobal", "-g", "1"],
+                                   ["-g", "1"], ["-a", "local", "-g", "1"]])
 def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch, flags):
     from bioinfo1_tpu_torch import cli
     rng = np.random.default_rng(3)
@@ -652,7 +721,8 @@ def test_cli_cuda_matches_cpu(dev, tmp_path, monkeypatch, flags):
         outs.append(out.getvalue())
     assert outs[0] == outs[1]
     assert outs[0].count("\n") >= 12
-    assert outs[0].count("cg:Z:") == (outs[0].count("\n") if flags else 0)
+    assert outs[0].count("cg:Z:") == (outs[0].count("\n") if "-c" in flags
+                                      else 0)
 
 
 def test_cli_bug_compat_fasta_cuda_matches_cpu(dev, tmp_path, monkeypatch):

@@ -82,6 +82,27 @@ def test_band_work_counts_matrix_cells_not_swept_lanes(smoke):
     assert set(smoke.NEEDED_OPS) == set(smoke.KERNELS)
 
 
+def test_full_work_counts_matrix_cells_and_swept_strips(smoke,
+                                                        monkeypatch):
+    """K3's bound counts the cells inside each matrix; beside it, the
+    cells its strips visit: S lanes on each diagonal r0 + 2 .. min(r0 + S,
+    q_len) + t_len of every strip, in whole pairs of diagonals, none on a
+    read with q_len = 0 or t_len = 0."""
+    from bioinfo1_tpu_torch.ops import align as al
+    monkeypatch.setattr(al, "FULL_LPT", 16)
+    q = torch.zeros((4, 600), dtype=torch.uint8)
+    t = torch.zeros((4, 800), dtype=torch.uint8)
+    ql = torch.tensor([600, 0, 513, 40], dtype=torch.int32)
+    tl = torch.tensor([700, 5, 0, 31], dtype=torch.int32)
+    row = smoke.full_work(q, ql, t, tl)
+    assert row["work"] == 600 * 700 + 40 * 31 and row["unit"] == "cells"
+    assert row["bytes"] == 4 * 600 + 4 * 800 + 20 * 4
+    # Read 0: strips of 512 and 88 rows (1,211 and 787 diagonals, rounded
+    # up to pairs); read 3: one strip, 70 diagonals.
+    assert row["swept"] == 512 * (1212 + 788 + 70)
+    assert (row["lpt"], row["strip_rows"], row["strips"]) == (16, 512, 2)
+
+
 def test_walk_chain_replays_the_bytes_a_walk_reads(smoke):
     """The host replay of a walk from its codes: its steps are the codes
     before the first done, and it touches one parent row per 4 diagonals
