@@ -3,15 +3,18 @@
 Same surface, defaults, help/version text and exit codes as the JAX
 package's CLI for the flags the port runs: ``-a -m -n -g -k -w -f -c -s -o
 --sam-cigar --bug-compat --resume --profile --batch-size --save-index
---load-index -h --version`` and ``--devices`` 0 or 1.  The device comes
-from ``BIOINFO1_PLATFORM`` (``cuda`` by default, or ``cpu``).  ``-c`` where
-no exactness certificate exists (``-a global`` with ``-g >= 0``, ``-a
-local`` / ``semiGlobal`` with ``-g > 0``) and ``--bug-compat`` on a FASTA
-reads file (FASTA match nesting) run on the mapper's staged host path.
+--load-index --devices -h --version``.  The device comes from
+``BIOINFO1_PLATFORM`` (``cuda`` by default, or ``cpu``).  ``--devices N``
+caps the fused step's data-parallel split at N local CUDA devices (0, the
+default: all, as the largest power-of-two prefix; 1: one); on the CPU the
+run uses one device.  ``-c`` where no exactness certificate exists (``-a
+global`` with ``-g >= 0``, ``-a local`` / ``semiGlobal`` with ``-g > 0``)
+and ``--bug-compat`` on a FASTA reads file (FASTA match nesting) run on the
+mapper's staged host path.
 
-Refused with rc 1 and a one-line message, never silently ignored:
-``--devices N`` with N > 1, and the multi-process variables
-``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
+Refused with rc 1 and a one-line message, never silently ignored: the
+multi-process variables ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID``.
 """
 
 from __future__ import annotations
@@ -111,8 +114,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
     out = stdout if stdout is not None else sys.stdout
     err = stderr if stderr is not None else sys.stderr
 
-    from bioinfo1_tpu_torch.pipeline.mapper import (Mapper, MapperConfig,
-                                                    unported_features)
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
 
     cfg = MapperConfig()
     file1 = file2 = ""
@@ -213,13 +215,10 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         print(HELP_TEXT, end="", file=out)
         return 1
 
-    refused = (unported_features(cfg) or [None])[0]
-    if refused is None and any(os.environ.get(v)
-                               for v in _MULTI_PROCESS_VARS):
-        refused = ("a multi-process run (" + " / ".join(_MULTI_PROCESS_VARS)
-                   + ")")
-    if refused:
-        print(f"Error: {refused} {_NOT_PORTED}", file=err)
+    if any(os.environ.get(v) for v in _MULTI_PROCESS_VARS):
+        print("Error: a multi-process run ("
+              + " / ".join(_MULTI_PROCESS_VARS) + f") {_NOT_PORTED}",
+              file=err)
         return 1
 
     from bioinfo1_tpu_torch.utils.runtime import resolve_device
@@ -252,7 +251,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         from bioinfo1_tpu_torch.index.builder import save_index as do_save
         do_save(mapper.index, save_index)
     with timers.stage("index_upload"):
-        mapper.device_index()
+        mapper.upload_index()
 
     if statistic:
         idx = mapper.index

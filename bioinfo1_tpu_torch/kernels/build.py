@@ -26,6 +26,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -184,12 +186,16 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(wrapper, name: str, *args, counter: str = "launches") -> None:
-    """Call C entry point ``name``; raise on a CUDA error, else count one
-    launch on ``wrapper.<counter>`` (``launches`` unless the wrapper serves
-    two kernels)."""
+def launch(wrapper, name: str, *args, device: torch.device,
+           counter: str = "launches") -> None:
+    """Call C entry point ``name`` with ``device`` (the tensors' device)
+    current, so the library's own CUDA runtime launches there whatever
+    device the calling thread had made current; raise on a CUDA error, else
+    count one launch on ``wrapper.<counter>`` (``launches`` unless the
+    wrapper serves two kernels)."""
     lib = library()
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.bioinfo1_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

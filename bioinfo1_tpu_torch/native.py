@@ -6,13 +6,23 @@ serializer (native/paf.cpp, bound here) - is C++ too, bound with ctypes
 (the image ships no pybind11).  The library is built lazily via
 tools/build_native.sh; everything degrades gracefully to Python fallbacks
 when the toolchain is unavailable.
+
+The fallbacks are not the library in every respect: ``freq_orders2`` (the
+reference's frequency-tie order, under ``--bug-compat``) has none, so the
+output depends on whether the library loaded.  A load therefore never gives
+up on a library that another process is still writing: the port's builds
+are serialised by a lock file beside the library, and a library that exists
+but does not load yet (the JAX package's loader builds it in place, without
+the lock) is retried for up to ``_LOAD_WAIT_S`` seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,6 +30,7 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _LIB_PATH = os.path.join(_REPO, "build", "libbioinfo1_native.so")
 _BUILD_SCRIPT = os.path.join(_REPO, "tools", "build_native.sh")
+_LOAD_WAIT_S = 120.0
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
@@ -32,9 +43,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
     _load_attempted = True
     try:
-        if not os.path.exists(_LIB_PATH) and os.path.exists(_BUILD_SCRIPT):
-            subprocess.run([_BUILD_SCRIPT], check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = _build_and_load()
         u32p = ctypes.POINTER(ctypes.c_uint32)
         i32p = ctypes.POINTER(ctypes.c_int32)
         lib.bioinfo1_freq_orders2.restype = ctypes.c_int64
@@ -67,6 +76,24 @@ def get_lib() -> Optional[ctypes.CDLL]:
     except (OSError, subprocess.CalledProcessError):
         _lib = None
     return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
+    """Build the library if it is missing (one process at a time), then load
+    it, retrying while the file exists but does not load yet."""
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    with open(_LIB_PATH + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB_PATH) and os.path.exists(_BUILD_SCRIPT):
+            subprocess.run([_BUILD_SCRIPT], check=True, capture_output=True)
+    deadline = time.monotonic() + _LOAD_WAIT_S
+    while True:
+        try:
+            return ctypes.CDLL(_LIB_PATH)
+        except OSError:
+            if not os.path.exists(_LIB_PATH) or time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
 
 
 #: Per-strand histogram orderings: (iter_hash, iter_count, sorted_hash).

@@ -211,7 +211,8 @@ def align_scores(q_bytes: torch.Tensor, q_lens: torch.Tensor,
             q_lens.data_ptr(), t_lens.data_ptr(), B, mode, match, mismatch,
             gap, None if row is None else row.data_ptr(), out.data_ptr(),
             plan.lpt, plan.warps_per_cta,
-            torch.cuda.current_stream(q_bytes.device).cuda_stream)
+            torch.cuda.current_stream(q_bytes.device).cuda_stream,
+            device=q_bytes.device)
     return AlignOut(*out.unbind(0))
 
 

@@ -339,11 +339,11 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if want_parents:
             build.launch(align_scores_banded, "bioinfo1_band_parents", *args,
-                         parents.data_ptr(), stream,
+                         parents.data_ptr(), stream, device=dev,
                          counter="parent_launches")
         else:
             build.launch(align_scores_banded, "bioinfo1_band_score", *args,
-                         stream)
+                         stream, device=dev)
         with _path_lock:
             align_scores_banded.path_launches[plan.path] += 1
     return AlignOut(*out.unbind(0), parents=parents)

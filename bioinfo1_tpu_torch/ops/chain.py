@@ -174,7 +174,8 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
             0 if packed is None else packed.data_ptr(),
             0 if prev is None else prev.data_ptr(),
             out.data_ptr(), CHAIN_PATHS.index(plan.path), plan.threads,
-            torch.cuda.current_stream(f_pos.device).cuda_stream)
+            torch.cuda.current_stream(f_pos.device).cuda_stream,
+            device=f_pos.device)
     return ChainResult(*out.unbind(0))
 
 

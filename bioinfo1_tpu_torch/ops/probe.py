@@ -56,7 +56,8 @@ def int32_probe(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     if x.numel():
         build.launch(int32_probe, "bioinfo1_int32_probe", x.data_ptr(),
                      out.data_ptr(), x.numel(), n_iter, 1,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+                     torch.cuda.current_stream(x.device).cuda_stream,
+                     device=x.device)
     return out
 
 

@@ -157,7 +157,8 @@ def walk_parents(parents: torch.Tensor, goal_i: torch.Tensor,
             q_bytes.data_ptr(), q_bytes.shape[1], t_bytes.data_ptr(),
             t_bytes.shape[1], mode, match, mismatch, gap, WALK_SLAB_ROWS,
             WALK_WINDOW, out.data_ptr(),
-            torch.cuda.current_stream(parents.device).cuda_stream)
+            torch.cuda.current_stream(parents.device).cuda_stream,
+            device=parents.device)
     return out
 
 

@@ -11,7 +11,10 @@ strand select -> region gather, then
     certificate, and the traceback walk (kernel K5); only the packed op
     codes leave the device.
 
-On CPU tensors every kernel wrapper takes its plain PyTorch version.
+On CPU tensors every kernel wrapper takes its plain PyTorch version.  The
+stages carry ``record_function`` scopes (``step.minimize``, ``step.lookup``,
+``step.chain``, ``step.regions``, ``step.align``, ``step.walk``) that split
+the step's host time in a trace.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
@@ -269,54 +273,59 @@ def _map_core(reads, lens, index: DeviceIndex, *, k, w, budget, region_cap,
     select -> region extraction.  Returns the per-read coordinates and the
     gathered (q_win, t_win, q_len, t_len) alignment regions."""
     B, L = reads.shape
-    mres = mz.minimize_batch(reads, lens, k, w,
-                             oob_end_windows=oob_end_windows)
-    # Pack the ~2/(w+1) surviving slots left; the cap follows the expected
-    # survivor count (+1 window of slack).  Reads with more kept slots are
-    # flagged overflow and retry at a doubled budget.
-    expect = -(-2 * L // ((w + 1) * 128)) * 128 + 128
-    keep_cap = min(mres.hashes.shape[1], budget, max(expect, budget // 2))
-    q_hash, q_pos, q_keep, q_over = match_ops.compact_queries(
-        mres.hashes, mres.pos, mres.dedup_keep, keep_cap)
-    got_f, got_r = match_ops.find_matches_combined(
-        q_hash, q_pos, q_keep, index.key_hash, index.key_pos, index.cnt_fr,
-        index.cnt_r2, index.bucket_off, index.shift, index.bsearch_steps,
-        budget, index.cnt_shift)
-    # One chain call over both strands' rows (rows are independent).
-    both = chain_ops.lis_chain(
-        torch.cat([got_f.f_pos, got_r.f_pos]).contiguous(),
-        torch.cat([got_f.r_pos, got_r.r_pos]).contiguous(),
-        torch.cat([got_f.count, got_r.count]).contiguous())
+    with record_function("step.minimize"):
+        mres = mz.minimize_batch(reads, lens, k, w,
+                                 oob_end_windows=oob_end_windows)
+    with record_function("step.lookup"):
+        # Pack the ~2/(w+1) surviving slots left; the cap follows the
+        # expected survivor count (+1 window of slack).  Reads with more
+        # kept slots are flagged overflow and retry at a doubled budget.
+        expect = -(-2 * L // ((w + 1) * 128)) * 128 + 128
+        keep_cap = min(mres.hashes.shape[1], budget,
+                       max(expect, budget // 2))
+        q_hash, q_pos, q_keep, q_over = match_ops.compact_queries(
+            mres.hashes, mres.pos, mres.dedup_keep, keep_cap)
+        got_f, got_r = match_ops.find_matches_combined(
+            q_hash, q_pos, q_keep, index.key_hash, index.key_pos,
+            index.cnt_fr, index.cnt_r2, index.bucket_off, index.shift,
+            index.bsearch_steps, budget, index.cnt_shift)
+    with record_function("step.chain"):
+        # One chain call over both strands' rows (rows are independent).
+        both = chain_ops.lis_chain(
+            torch.cat([got_f.f_pos, got_r.f_pos]).contiguous(),
+            torch.cat([got_f.r_pos, got_r.r_pos]).contiguous(),
+            torch.cat([got_f.count, got_r.count]).contiguous())
     cf = chain_ops.ChainResult(*(getattr(both, f.name)[:B] for f in
                                  dataclasses.fields(both)))
     cr = chain_ops.ChainResult(*(getattr(both, f.name)[B:] for f in
                                  dataclasses.fields(both)))
+    with record_function("step.regions"):
+        use_fwd = cf.length >= cr.length          # ties forward (quirk #8)
+        mapped = torch.where(use_fwd, cf.length, cr.length) > 0
+        overflow = got_f.overflow | got_r.overflow | q_over
+        need = torch.maximum(got_f.total, got_r.total)
 
-    use_fwd = cf.length >= cr.length          # ties forward (quirk #8)
-    mapped = torch.where(use_fwd, cf.length, cr.length) > 0
-    overflow = got_f.overflow | got_r.overflow | q_over
-    need = torch.maximum(got_f.total, got_r.total)
+        q_begin = torch.where(use_fwd, cf.q_start, cr.q_start) - 1
+        q_end = torch.where(use_fwd, cf.q_end, cr.q_end) + k - 2
+        t_begin = torch.where(use_fwd, cf.t_start, cr.t_start) - 1
+        t_end = torch.where(use_fwd, cf.t_end, cr.t_end) + k - 2
 
-    q_begin = torch.where(use_fwd, cf.q_start, cr.q_start) - 1
-    q_end = torch.where(use_fwd, cf.q_end, cr.q_end) + k - 2
-    t_begin = torch.where(use_fwd, cf.t_start, cr.t_start) - 1
-    t_end = torch.where(use_fwd, cf.t_end, cr.t_end) + k - 2
+        q_len = torch.where(mapped, q_end - q_begin + 1, 0)
+        t_len = torch.where(mapped, t_end - t_begin + 1, 0)
+        # Query regions lie within the read (cap L); only target regions,
+        # which may span indels, need the larger region_cap.
+        overflow = overflow | (t_len > region_cap)
+        q_len = q_len.clamp(max=L).to(torch.int32)
+        t_len = t_len.clamp(max=region_cap).to(torch.int32)
 
-    q_len = torch.where(mapped, q_end - q_begin + 1, 0)
-    t_len = torch.where(mapped, t_end - t_begin + 1, 0)
-    # Query regions lie within the read (cap L); only target regions, which
-    # may span indels, need the larger region_cap.
-    overflow = overflow | (t_len > region_cap)
-    q_len = q_len.clamp(max=L).to(torch.int32)
-    t_len = t_len.clamp(max=region_cap).to(torch.int32)
-
-    q_win = _extract_windows(reads, q_begin.clamp(min=0), L)
-    ref_pad = index.ref_bytes.shape[-1]
-    t_base = (torch.where(use_fwd, 0, 1) * ref_pad + t_begin.clamp(min=0))
-    t_win = _extract_flat_windows(index.ref_bytes.reshape(-1), t_base,
-                                  region_cap)
-    return (mapped, use_fwd, q_begin, q_end, t_begin, t_end, overflow,
-            q_win, t_win, q_len, t_len, need)
+        q_win = _extract_windows(reads, q_begin.clamp(min=0), L)
+        ref_pad = index.ref_bytes.shape[-1]
+        t_base = (torch.where(use_fwd, 0, 1) * ref_pad
+                  + t_begin.clamp(min=0))
+        t_win = _extract_flat_windows(index.ref_bytes.reshape(-1), t_base,
+                                      region_cap)
+        return (mapped, use_fwd, q_begin, q_end, t_begin, t_end, overflow,
+                q_win, t_win, q_len, t_len, need)
 
 
 def map_step(reads: torch.Tensor, lens: torch.Tensor, index: DeviceIndex,
@@ -338,17 +347,18 @@ def map_step(reads: torch.Tensor, lens: torch.Tensor, index: DeviceIndex,
         reads, lens, index, k=k, w=w, budget=budget, region_cap=region_cap,
         oob_end_windows=oob_end_windows)
     inexact = torch.zeros_like(mapped)
-    if band:
-        bout = bd.align_scores_banded(q_win, q_len, t_win, t_len, match,
-                                      mismatch, gap, band=band, mode=mode,
-                                      dash_free=dash_free)
-        certified = bd.certify(bout.score, q_win, q_len, t_win, t_len,
-                               match, mismatch, gap, band, mode=mode)
-        score = bout.score
-        inexact = mapped & ~certified
-    else:
-        score = al.align_scores(q_win, q_len, t_win, t_len, mode, match,
-                                mismatch, gap).score
+    with record_function("step.align"):
+        if band:
+            bout = bd.align_scores_banded(q_win, q_len, t_win, t_len, match,
+                                          mismatch, gap, band=band,
+                                          mode=mode, dash_free=dash_free)
+            certified = bd.certify(bout.score, q_win, q_len, t_win, t_len,
+                                   match, mismatch, gap, band, mode=mode)
+            score = bout.score
+            inexact = mapped & ~certified
+        else:
+            score = al.align_scores(q_win, q_len, t_win, t_len, mode, match,
+                                    mismatch, gap).score
     return MapOut(mapped=mapped & ~overflow, is_fwd=use_fwd,
                   q_begin=q_begin, q_end=q_end, t_begin=t_begin, t_end=t_end,
                   score=score, overflow=overflow, need=need, inexact=inexact)
@@ -400,13 +410,16 @@ def map_step_cigar(reads: torch.Tensor, lens: torch.Tensor,
      q_win, t_win, q_len, t_len, need) = _map_core(
         reads, lens, index, k=k, w=w, budget=budget, region_cap=region_cap,
         oob_end_windows=oob_end_windows)
-    out = bd.align_scores_banded(q_win, q_len, t_win, t_len, match, mismatch,
-                                 gap, band=band, mode=mode,
-                                 dash_free=dash_free, want_parents=True)
-    certified = bd.certify(out.score, q_win, q_len, t_win, t_len, match,
-                           mismatch, gap, band, strict=True, mode=mode)
-    codes = tr.walk_parents(out.parents, out.goal_i, out.goal_j, out.score,
-                            q_win, t_win, match, mismatch, gap, mode)
+    with record_function("step.align"):
+        out = bd.align_scores_banded(q_win, q_len, t_win, t_len, match,
+                                     mismatch, gap, band=band, mode=mode,
+                                     dash_free=dash_free, want_parents=True)
+        certified = bd.certify(out.score, q_win, q_len, t_win, t_len, match,
+                               mismatch, gap, band, strict=True, mode=mode)
+    with record_function("step.walk"):
+        codes = tr.walk_parents(out.parents, out.goal_i, out.goal_j,
+                                out.score, q_win, t_win, match, mismatch,
+                                gap, mode)
     base = MapOut(mapped=mapped & ~overflow, is_fwd=use_fwd,
                   q_begin=q_begin, q_end=q_end, t_begin=t_begin, t_end=t_end,
                   score=out.score, overflow=overflow, need=need,

@@ -35,7 +35,19 @@ error (up to 6 attempts), else on the host path - or, when the host path
 itself fails, reported unmapped.  A CUDA error that the host path meets
 again ends the run (a sticky error poisons the context).
 
-Not ported yet, and refused rather than ignored: more than one device.
+With more than one device (``devices``: 0 = the largest power-of-two prefix
+of the local CUDA devices, N = at most N, 1 = one; or an explicit list) the
+fused step splits each padded batch over them (parallel/shard.py): one
+index copy per device, one stream and worker thread per entry, the slices'
+outputs gathered in input order.  The realign pass and the staged host path
+stay on the first device, as in the JAX package.
+
+The host steps carry ``record_function`` scopes that name them in a trace
+(utils/tracing.device_trace): ``map_batch``; ``fused`` with ``fused.pack``,
+``.upload``, ``.step``, ``.fetch`` (``fused.split`` in their place when
+split) and ``.adapt``; ``realign``, ``band_pass``, ``host_path``,
+``decode``; and on the caller's thread ``iter.wait`` (waiting for a batch)
+and ``format``.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bioinfo1_tpu_torch import native
 from bioinfo1_tpu_torch.index import builder
@@ -63,8 +76,10 @@ from bioinfo1_tpu_torch.ops import chain as chain_ops
 from bioinfo1_tpu_torch.ops import match as match_ops
 from bioinfo1_tpu_torch.ops import minimizer as mz
 from bioinfo1_tpu_torch.ops import trace as tr
+from bioinfo1_tpu_torch.parallel import shard as ps
 from bioinfo1_tpu_torch.pipeline import device_map as dm
 from bioinfo1_tpu_torch.utils.runtime import resolve_device
+from bioinfo1_tpu_torch.utils.tracing import scoped
 
 
 @dataclasses.dataclass
@@ -91,6 +106,8 @@ class MapperConfig:
     batch_size: int = 512
     initial_match_budget: int = 512
     bucket_growth: float = 1.5
+    # device parallelism: 0 = all local devices (largest pow-2 prefix),
+    # 1 = force single-device, N = cap the split at N devices
     devices: int = 0
 
 
@@ -194,13 +211,14 @@ def _batch_cap(b: int, floor: int) -> int:
     return p
 
 
-def _pack_reads(seqs: Sequence[str], min_len: int,
-                len_to: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+def _pack_reads(seqs: Sequence[str], min_len: int, len_to: int = 0,
+                min_batch: int = 8) -> Tuple[np.ndarray, np.ndarray]:
     """Pack strings into a right-padded (B, L) uint8 batch with canonical
-    dims (``len_to`` pins L to the caller's bucket cap; B is at least 8)."""
+    dims (``len_to`` pins L to the caller's bucket cap; B is at least
+    ``min_batch`` and a multiple of it: a split's size divides it)."""
     L = max(max((len(s) for s in seqs), default=1), min_len)
     L = max(L, len_to) if len_to >= L else _pow2_at_least(L, 16)
-    B = _batch_cap(len(seqs), 8)
+    B = _batch_cap(len(seqs), min_batch)
     arr = np.zeros((B, L), dtype=np.uint8)
     lens = np.zeros((B,), dtype=np.int32)
     for i, s in enumerate(seqs):
@@ -300,14 +318,6 @@ def certificate_possible(cfg: MapperConfig) -> bool:
     return cfg.gap < 0 if cfg.align_type == "global" else cfg.gap <= 0
 
 
-def unported_features(cfg: MapperConfig) -> List[str]:
-    """The configuration's features this port does not run yet."""
-    out = []
-    if cfg.devices > 1:
-        out.append(f"--devices {cfg.devices} (more than one device)")
-    return out
-
-
 def _is_cuda_error(e: Exception) -> bool:
     """A CUDA error: a kernel launch refused or failed
     (``kernels/build.launch``'s message) or one that PyTorch reports."""
@@ -321,16 +331,25 @@ def _free_memory_bytes(device: torch.device) -> int:
 
 
 class Mapper:
-    """Reusable mapping engine bound to one reference index and one device."""
+    """Reusable mapping engine bound to one reference index and its devices.
+
+    ``device`` (default: ``resolve_device()``) is where everything but a
+    split fused step runs; ``cfg.devices`` resolves the split on first use
+    when the device is a CUDA device.  ``devices``, an explicit list (a
+    device may repeat: the tests split over ``[cpu] * N``), sets the split
+    instead, and its first entry is ``device``."""
 
     def __init__(self, reference_records: Sequence[Tuple[str, str]],
                  cfg: MapperConfig, load_index: Optional[str] = None,
-                 device: Optional[torch.device] = None):
-        missing = unported_features(cfg)
-        if missing:
-            raise NotImplementedError(
-                "not yet ported to bioinfo1_tpu_torch: " + ", ".join(missing))
+                 device: Optional[torch.device] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self.cfg = cfg
+        self._shards: Optional[ps.DeviceSet] = None
+        self._shards_resolved = devices is not None
+        if devices is not None:
+            if len(devices) > 1:
+                self._shards = ps.make_devices(devices)
+            device = torch.device(devices[0])
         self.device = device if device is not None else resolve_device()
         # Only the first reference record is used (quirk #10).
         self.ref_name, reference = reference_records[0]
@@ -363,6 +382,7 @@ class Mapper:
         self._budget_boost: dict = {}    # cap -> pow-2 budget multiplier
         self._load_band_cache()
         self._device_index = None
+        self._replicated_index = None
         self._strand_tensors = None
 
     def device_index(self) -> dm.DeviceIndex:
@@ -373,6 +393,35 @@ class Mapper:
                 self._device_index = dm.device_index_from_host(
                     self.index, self.device)
             return self._device_index
+
+    def _get_devices(self) -> Optional[ps.DeviceSet]:
+        """The fused step's split (None: one device), resolved at first
+        use: ``cfg.devices`` over the local CUDA devices, none on the
+        CPU."""
+        with self._counters_lock:
+            if not self._shards_resolved:
+                if self.cfg.devices != 1 and self.device.type == "cuda":
+                    self._shards = ps.local_devices(self.cfg.devices)
+                self._shards_resolved = True
+            return self._shards
+
+    def _get_replicated_index(self, shards: ps.DeviceSet) -> dict:
+        """The index on every device of the split, by device (replicated;
+        the JAX package's hash-range-sharded layout is not ported)."""
+        didx = self.device_index()
+        with self._counters_lock:
+            if self._replicated_index is None:
+                self._replicated_index = ps.replicate_index(didx, shards)
+            return self._replicated_index
+
+    def upload_index(self) -> None:
+        """Pack and upload the index to the device, and to every device of
+        the split."""
+        shards = self._get_devices()
+        if shards is None:
+            self.device_index()
+        else:
+            self._get_replicated_index(shards)
 
     def _band_cache_path(self):
         """Adaptive-band persistence (perf-only state), keyed by the scoring
@@ -448,6 +497,29 @@ class Mapper:
         return min(_region_cap(cap) + 128,
                    max(256, (mem_cap // 128) * 128))
 
+    @scoped("fused.adapt")
+    def _adapt_band_cigar(self, cap: int, cig: dm.CigarOut, n_real: int,
+                          band: int, max_band: int) -> None:
+        """Persist the -c band for future batches: the largest needed band,
+        capped at 2x the 99th percentile so one outlier does not widen every
+        later batch's parent stream (it pays the realign pass instead)."""
+        out = cig.base
+        mapped = out.mapped[:n_real]
+        if not mapped.any():
+            return
+        cfg = self.cfg
+        need = _needed_band_arr(
+            cig.q_len[:n_real], cig.t_len[:n_real], out.score[:n_real],
+            cfg.match, cfg.mismatch, cfg.gap, self._mode, strict=True)
+        if need is None:
+            persist = band
+        else:
+            w99 = float(np.percentile(need[mapped], 99))
+            w100 = float(need[mapped].max())
+            persist = -(-int(max(min(w100, 2 * w99), 256)) // 128) * 128
+        self._band_by_key[(cap, True)] = min(max(persist, 256), max_band)
+
+    @scoped("fused.adapt")
     def _adapt_band_score(self, cap: int, out: dm.MapOut,
                           n_real: int) -> None:
         """Retune the bucket's band from the observed scores: the minimal
@@ -513,6 +585,7 @@ class Mapper:
         t += "\0" * (te - tb + 1 - len(t))
         return q, t
 
+    @scoped("band_pass")
     def _banded_pass(self, qa: np.ndarray, ql: np.ndarray, ta: np.ndarray,
                      tl: np.ndarray, W: int, dash_free: bool,
                      want_parents: bool, strict: bool) -> BandPass:
@@ -552,6 +625,7 @@ class Mapper:
         return BandPass(h[0].astype(bool), h[1], h[2], h[3], codes,
                         len(host))
 
+    @scoped("decode")
     def _timed_decode(self, codes, sel, goal_i, goal_j, ql, tl) -> dict:
         """{read: (cigar, target_begin)} of the selected reads."""
         if not len(sel):
@@ -563,6 +637,7 @@ class Mapper:
             self.counters.t_decode_s += time.perf_counter() - t_dec
         return dict(zip((int(i) for i in sel), zip(cigs, tbs)))
 
+    @scoped("realign")
     def _realign_bucket(self, seqs: Sequence[str], hints: dict,
                         ) -> Tuple[List[ReadMapping], List[int]]:
         """Certificate misses: re-run only the banded alignment at the band
@@ -612,6 +687,7 @@ class Mapper:
                 target_begin=target_begin))
         return results, missed
 
+    @scoped("host_path")
     def _map_bucket(self, seqs: Sequence[str], budget: int,
                     band_hint: int = 0,
                     ) -> Tuple[List[ReadMapping], List[int]]:
@@ -733,6 +809,7 @@ class Mapper:
                 score=int(scores[b]), cigar=cigar, target_begin=target_begin)
         return results, retry
 
+    @scoped("fused")
     def _map_bucket_fused(self, seqs: Sequence[str], budget: int):
         """One fused device batch (``map_step``, or ``map_step_cigar``
         under -c).  Returns (results, budget_retry, realign, realign_hint,
@@ -742,50 +819,52 @@ class Mapper:
         totals (key -1: the batch maximum)."""
         cfg = self.cfg
         floor = cfg.k + cfg.w - 1
-        arr, lens = _pack_reads(seqs, floor, len_to=_bucket_cap(
-            max(len(s) for s in seqs), floor))
+        shards = self._get_devices()
+        with record_function("fused.pack"):
+            arr, lens = _pack_reads(
+                seqs, floor, len_to=_bucket_cap(max(len(s) for s in seqs),
+                                                floor),
+                min_batch=shards.size if shards else 8)
+            dash_free = bool(self._dash_free_sticky and self._ref_dash_free
+                             and not (arr == 45).any())
         cap = arr.shape[1]
         region_cap = _region_cap(cap)
         mode = self._mode
-        dash_free = bool(self._dash_free_sticky and self._ref_dash_free
-                         and not (arr == 45).any())
         if not dash_free:
             self._dash_free_sticky = False
-        reads_d, lens_d = self._to_device(arr, lens)
         kw = dict(k=cfg.k, w=cfg.w, mode=mode, budget=budget,
                   region_cap=region_cap, oob_end_windows=cfg.oob_end_windows,
                   dash_free=dash_free)
+
+        def step(fn, sharded_fn, band):
+            """The fused step on the batch, its outputs as host arrays:
+            split over the devices, or on the one device."""
+            if shards is not None:
+                idx = self._get_replicated_index(shards)
+                with record_function("fused.split"):
+                    return sharded_fn(shards, arr, lens, idx, cfg.match,
+                                      cfg.mismatch, cfg.gap, band=band, **kw)
+            with record_function("fused.upload"):
+                reads_d, lens_d = self._to_device(arr, lens)
+            with record_function("fused.step"):
+                res = fn(reads_d, lens_d, self.device_index(), cfg.match,
+                         cfg.mismatch, cfg.gap, band=band, **kw)
+            with record_function("fused.fetch"):
+                return res.to_numpy()
+
         n_real = len(seqs)
         cig = None
         cig_by_i: dict = {}
         if cfg.output_cigar:
-            # The parent tensor's ceiling also clamps a band persisted under
-            # a smaller batch.
+            # The parent tensor's ceiling (on the whole batch, as in the JAX
+            # package, so the bands match the unsplit step's) also clamps a
+            # band persisted under a smaller batch.
             max_band = self._max_fused_band(cap, arr.shape[0])
             band = min(self._bucket_band(cap, True), max_band)
-            cig = dm.map_step_cigar(
-                reads_d, lens_d, self.device_index(), cfg.match,
-                cfg.mismatch, cfg.gap, band=band, **kw).to_numpy()
+            cig = step(dm.map_step_cigar, ps.sharded_map_step_cigar, band)
             out = cig.base
             mapped = out.mapped[:n_real]
-            if mapped.any():
-                # Persist the band for future batches: the largest needed
-                # band, capped at 2x the 99th percentile so one outlier
-                # does not widen every later batch's parent stream (it
-                # pays the realign pass instead).
-                need = _needed_band_arr(
-                    cig.q_len[:n_real], cig.t_len[:n_real],
-                    out.score[:n_real], cfg.match, cfg.mismatch, cfg.gap,
-                    mode, strict=True)
-                if need is None:
-                    persist = band
-                else:
-                    w99 = float(np.percentile(need[mapped], 99))
-                    w100 = float(need[mapped].max())
-                    persist = -(-int(max(min(w100, 2 * w99), 256))
-                                // 128) * 128
-                self._band_by_key[(cap, True)] = min(max(persist, 256),
-                                                     max_band)
+            self._adapt_band_cigar(cap, cig, n_real, band, max_band)
             certified = cig.certified[:n_real]
             with self._counters_lock:
                 self.counters.cert_total += int(mapped.sum())
@@ -795,9 +874,7 @@ class Mapper:
                 cig.goal_j, cig.q_len, cig.t_len)
         else:
             band = self._bucket_band(cap, False)
-            out = dm.map_step(
-                reads_d, lens_d, self.device_index(), cfg.match,
-                cfg.mismatch, cfg.gap, band=band, **kw).to_numpy()
+            out = step(dm.map_step, ps.sharded_map_step, band)
             self._adapt_band_score(cap, out, n_real)
         results: List[ReadMapping] = []
         retry: List[int] = []
@@ -854,6 +931,7 @@ class Mapper:
         retry_need[-1] = int(out.need[:n_real].max())
         return results, retry, realign, hint, retry_need
 
+    @scoped("map_batch")
     def map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
         """Map one batch of reads: the fused step under the budget ladder,
         the realign pass for certificate misses with a provable band, and
@@ -1033,6 +1111,7 @@ class Mapper:
             self.counters.dp_cells += cells
         return results
 
+    @scoped("format")
     def _format_chunk(self, chunk: Sequence[Tuple[str, str]],
                       mappings: Sequence[ReadMapping],
                       per_read_stats: bool) -> List[List[str]]:
@@ -1074,11 +1153,14 @@ class Mapper:
         BIOINFO1_INFLIGHT_BYTES overrides.  The default is half of the
         device's free memory measured after the index upload, so it follows
         the card (the JAX package's 7e9 was sized for a TPU beside its
-        index); on the CPU it is half of the available host memory."""
+        index); on the CPU it is half of the available host memory.  A
+        split batch spreads its workspace over the devices; the first
+        device, which also runs the realign pass and the host path, stays
+        the measure."""
         env = os.environ.get("BIOINFO1_INFLIGHT_BYTES")
         if env:
             return int(float(env))
-        self.device_index()
+        self.upload_index()
         return _free_memory_bytes(self.device) // 2
 
     def map_records_iter(self, records: Sequence[Tuple[str, str]],
@@ -1116,7 +1198,8 @@ class Mapper:
 
         def complete_oldest():
             entries, chunk, fut, _cost = in_flight.pop(0)
-            mappings = fut.result()
+            with record_function("iter.wait"):
+                mappings = fut.result()
             t_fmt = time.perf_counter()
             per_rec = self._format_chunk(chunk, mappings, per_read_stats)
             with self._counters_lock:

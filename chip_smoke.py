@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
-                           --chain-trial | --chain-profile | --full-trial]
+                           --chain-trial | --chain-profile | --full-trial |
+                           --split-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -51,6 +52,13 @@ run):
      (no exactness certificate) on the first 256 reads, and --bug-compat
      on a FASTA copy of the first 512 (FASTA match nesting, score-only);
      t_host_s > 0 and K1, K4 and K5 (K3 in the FASTA run) launched.
+  2d. the fused step split over two streams of cuda:0 (parallel/shard.py,
+     one index copy): Mapper(devices=[cuda:0, cuda:0]) on phase 2's 2,048
+     reads in-process, score-only and then -c, each beside an unsplit
+     mapper (two passes each: fresh, then adapted bands); K1, K2 and K3,
+     then K1, K4 and K5 must launch (from the split's worker threads) and
+     every pass's PAF must equal phase 2's and phase 2c's -c run byte for
+     byte; reads/s of each pass beside the CLI run's.
   2L. the main path at 50 kb: 16 ONT-profile reads of 50 kb from the
      bench's genome through Mapper.map_records in-process (score-only,
      fresh bands): as planned (their bands take the cluster path, which
@@ -71,7 +79,12 @@ run):
      32 reads of 50 kb score-only, fresh and
      with adapted bands, without and then under torch.profiler (device
      busy time and share, device time and launches by kernel, the
-     mapper's counters of each pass).
+     mapper's counters of each pass), then with a third mapper under
+     utils/tracing.device_trace (every thread; the trace files go to
+     build/chip_smoke/traces/): the host time by scope (calls, threads,
+     inclusive and exclusive s), the main thread's wall split into waiting
+     for batches, formatting and the rest, the batch threads' time split by
+     scope, and the device busy share.
 
   With --lpt-trial phase 0 builds K2 / K4 with every lanes-per-thread
   variant, phase 1t times them at the phase-1 pairs (the table behind
@@ -88,7 +101,12 @@ run):
   alone (the kernel table's shape, the 8 kb bucket's fused call captured
   from a run like phase 2g's -g 1 one, 16 reads of 50 kb; every
   rows-per-thread choice) and the run ends there; like the other trials
-  it runs from an older tree's root too.
+  it runs from an older tree's root too.  With --split-trial phase 2m
+  runs the CLI on phase 2's inputs with --devices 1 and then --devices 0
+  (every visible card, the largest power-of-two prefix), score-only and
+  -c, and the run ends there: the PAFs must be byte-identical, each card
+  must hold an index copy and the split must have run; reads/s of both.
+  It is the one mode that uses more than one card.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -108,6 +126,7 @@ terminal keeps only the end of the output).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -1447,6 +1466,97 @@ def phase_staged(ref, paths, recs) -> tuple:
     return {"phase": "2s", "runs": runs, "launches": launches}, lines
 
 
+def phase_split(genome: str, recs, cli: dict) -> dict:
+    """The fused step split over two streams of cuda:0 and one index copy,
+    in-process on phase 2's reads, score-only and then -c.  Beside each
+    split mapper an unsplit one maps the same reads; each runs two passes
+    (fresh bands, then adapted), unsplit first.  The kernel counts are set
+    to 0 just before the split mapper's first pass and read just after it.
+    ``cli`` maps "score" and "c" to the unsplit CLI run of the same reads
+    (phase 2, phase 2c's -c run): its PAF lines and its row."""
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    dev = torch.device("cuda", 0)
+    runs = {}
+    for key, cfg, kernels in (
+            ("score", MapperConfig(),
+             ("lis_chain", "band_score", "full_score")),
+            ("c", MapperConfig(output_cigar=True),
+             ("lis_chain", "band_parents", "walk_parents"))):
+        want, cli_row = cli[key]
+        row = {"reads": len(recs),
+               "cli_reads_per_s_map": cli_row["reads_per_s_map"]}
+        for how, devices in (("unsplit", [dev]), ("split", [dev, dev])):
+            mapper = Mapper([("ecoli_like", genome)], cfg, devices=devices)
+            mapper.upload_index()
+            for name in ("fresh", "adapted"):
+                counters = reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lines = mapper.map_records(recs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check(lines == want, f"{how} {key} {name}: the PAF differs "
+                      "from the CLI run's")
+                row[f"{how}_{name}_reads_per_s"] = len(recs) / wall
+                if how == "split" and name == "fresh":
+                    row["launches"] = {k: getattr(w, a)
+                                       for k, (w, a) in counters.items()}
+            if how == "split":
+                shards = mapper._get_devices()
+                check(shards.slices_run >= 2
+                      and len(mapper._replicated_index) == 1,
+                      f"split {key}: the step did not run split over one "
+                      "index copy")
+                row.update(slices=shards.slices_run,
+                           mapper=mapper.counters.as_dict())
+                del shards
+            del mapper
+            torch.cuda.empty_cache()
+        for k in kernels:
+            check(row["launches"][k] >= 1, f"split {key}: kernel {k} never "
+                  "launched")
+        row["paf_lines"] = len(want)
+        row["byte_identical"] = True
+        runs[key] = row
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["score"]["launches"]}
+    return {"phase": "2d", "devices": ["cuda:0", "cuda:0"], "runs": runs,
+            "launches": launches}
+
+
+def phase_split_trial() -> dict:
+    """The CLI split over every visible card against one card (phase 2m)."""
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    n_dev = torch.cuda.device_count()
+    shards = ps.local_devices(0)
+    check(shards is not None, f"--split-trial needs >= 2 cards ({n_dev})")
+    ref, paths, recs, _g, _short = write_inputs()
+    runs = {}
+    for key, flags, kernels in (
+            ("score", [], ("lis_chain", "band_score", "full_score")),
+            ("c", ["-c"], ("lis_chain", "band_parents", "walk_parents"))):
+        one, one_lines = run_cli(ref, paths[N_READS], recs,
+                                 flags + ["--devices", "1"],
+                                 f"one_{key}.paf", kernels)
+        torch.cuda.empty_cache()
+        peak = []
+        for i in range(n_dev):
+            torch.cuda.reset_peak_memory_stats(i)
+        split, lines = run_cli(ref, paths[N_READS], recs,
+                               flags + ["--devices", "0"],
+                               f"split_{key}.paf", kernels)
+        for i in range(shards.size):
+            peak.append(torch.cuda.max_memory_allocated(i))
+        check(lines == one_lines, f"{flags}: the split PAF differs")
+        check(min(peak) > 1 << 30, f"{flags}: a card held no index copy "
+              f"(peak bytes {peak})")
+        torch.cuda.empty_cache()
+        runs[key] = {"one": one, "split": split, "peak_bytes": peak,
+                     "byte_identical": True}
+    return {"phase": "2m", "cards": n_dev, "split_over": shards.size,
+            "runs": runs}
+
+
 def longread_records():
     """16 ONT-profile reads of 50 kb from the bench's genome."""
     genome = bench_torch.make_data(bench_torch.FULL)[0]
@@ -1608,8 +1718,12 @@ def device_time(prof):
     the union of the device intervals; top lists the 12 names with the most
     device time, then any kernel of the port (csrc/) below them, as [name,
     launches, ms]."""
+    # The profiler mirrors each record_function scope that launched device
+    # work as a device-side annotation spanning that work: not device time.
+    scopes = {e.name for e in prof.events() if e.is_user_annotation}
     ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation and e.name not in scopes]
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in ev):
         if e > end:
@@ -1645,22 +1759,53 @@ def phase_profile(genome: str, recs) -> dict:
     recs50 = sim.simulate_reads(arr, (50000,) * 32,
                                 np.random.default_rng(GENOME_SEED + 7))
     return {"phase": 4, "reads": len(recs),
-            "score": profile_cell(genome, recs, MapperConfig()),
-            "cigar": profile_cell(genome, recs,
+            "score": profile_cell("score", genome, recs, MapperConfig()),
+            "cigar": profile_cell("cigar", genome, recs,
                                   MapperConfig(output_cigar=True)),
             # No certificate: K3 scores every bucket (phase 2g's cell).
-            "score_g1": profile_cell(genome, recs[:N_NOCERT_READS],
+            "score_g1": profile_cell("score_g1", genome,
+                                     recs[:N_NOCERT_READS],
                                      MapperConfig(gap=1)),
-            "longread_50k": profile_cell(genome, recs50, MapperConfig())}
+            "longread_50k": profile_cell("longread_50k", genome, recs50,
+                                         MapperConfig())}
 
 
-def profile_cell(genome: str, recs, cfg) -> dict:
+# The mapper's scopes that run on the main thread (map_records_iter); the
+# others run on the batch and split worker threads.
+MAIN_SCOPES = ("map", "iter.wait", "format")
+
+
+def trace_split(split: dict, wall: float) -> dict:
+    """A device_trace pass's host time: every scope as [calls, threads,
+    inclusive s, exclusive s]; the main thread's "map" wall split into
+    waiting for batches, formatting and the rest; and the exclusive seconds
+    of the other scopes, summed over the worker threads, beside the
+    batches' inclusive seconds ("map_batch", what the workers' scopes
+    split)."""
+    main = {k: split.get(k, {}).get("incl_s", 0.0) for k in MAIN_SCOPES}
+    workers = {k: v["excl_s"] for k, v in split.items()
+               if k not in MAIN_SCOPES}
+    return {"wall_s": wall,
+            "scopes": {k: [v["calls"], v["threads"], v["incl_s"],
+                           v["excl_s"]] for k, v in split.items()},
+            "main_thread": {"map_s": main["map"],
+                            "wait_s": main["iter.wait"],
+                            "format_s": main["format"],
+                            "other_s": main["map"] - main["iter.wait"]
+                            - main["format"]},
+            "batch_threads_s": split.get("map_batch", {}).get("incl_s", 0.0),
+            "worker_scopes_excl_s": workers,
+            "worker_scopes_sum_s": sum(workers.values())}
+
+
+def profile_cell(cell: str, genome: str, recs, cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from bioinfo1_tpu_torch.ops import band as bd
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper
+    from bioinfo1_tpu_torch.utils import tracing
     dev = torch.device("cuda", 0)
     res: dict = {}
-    for profiled in (False, True):
+    for how in ("plain", "profiled", "traced"):
         mapper = Mapper([("ecoli_like", genome)], cfg, device=dev)
         mapper.device_index()
         for name in ("fresh", "adapted"):
@@ -1668,13 +1813,17 @@ def profile_cell(genome: str, recs, cfg) -> dict:
             paths0 = dict(bd.align_scores_banded.path_launches)
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) \
-                if profiled else None
+                if how == "profiled" else None
+            trace_dir = os.path.join(WORK, "traces", f"{cell}_{name}")
             if prof:
                 prof.start()
-            t0 = time.perf_counter()
-            mapper.map_records(recs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with (tracing.device_trace(trace_dir, dev) if how == "traced"
+                  else contextlib.nullcontext()) as traced:
+                timers = tracing.StageTimers(dev)
+                t0 = time.perf_counter()
+                with timers.stage("map"):
+                    mapper.map_records(recs)
+                wall = time.perf_counter() - t0
             after = mapper.counters.as_dict()
             row = {"wall_s": wall, "reads_per_s": len(recs) / wall,
                    "realign_batches": after["realign_batches"]
@@ -1693,11 +1842,16 @@ def profile_cell(genome: str, recs, cfg) -> dict:
                              in mapper._band_by_key.items()}}
             if prof:
                 prof.stop()
-                busy, top = device_time(prof)
-                check(busy > 0, "the profiler recorded no device time")
-                row.update(device_busy_s=busy, busy_share=busy / wall,
-                           top_device=top)
-            res[f"{name}{'_profiled' if profiled else ''}"] = row
+            for p in (prof, traced):
+                if p is not None:
+                    busy, top = device_time(p)
+                    check(busy > 0, "the profiler recorded no device time")
+                    row.update(device_busy_s=busy, busy_share=busy / wall,
+                               top_device=top)
+            if traced is not None:
+                row["host"] = trace_split(tracing.host_split(
+                    os.path.join(trace_dir, tracing.TRACE_FILE)), wall)
+            res[name + ("" if how == "plain" else "_" + how)] = row
         del mapper
         torch.cuda.empty_cache()
     return res
@@ -1710,6 +1864,7 @@ def main() -> int:
     chain_profile = "--chain-profile" in sys.argv[1:]
     chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
     full_trial = "--full-trial" in sys.argv[1:]
+    split_trial = "--split-trial" in sys.argv[1:]
     if lpt_trial:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if chain_profile:
@@ -1759,6 +1914,9 @@ def main() -> int:
     if full_trial:
         emit(phase_full_trial(dev))
         return 0
+    if split_trial:
+        emit(phase_split_trial())
+        return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})
     listing = build.sass()
@@ -1777,6 +1935,9 @@ def main() -> int:
     emit(p2g)
     p2s, staged_lines = phase_staged(ref, paths, recs)
     emit(p2s)
+    p2d = phase_split(genome, recs, {"score": (score_lines, p2),
+                                     "c": (gpu_lines["c"], p2c["runs"][0])})
+    emit(p2d)
     gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
     p2l = phase_longread(dev)
     emit(p2l)
@@ -1822,6 +1983,7 @@ def main() -> int:
                           / (needed[name] * main_row["work"])
                           if needed[name] else None,
                       "nocert_launches": p2g["launches"][name],
+                      "split_launches": p2d["launches"][name],
                       "staged_launches": p2s["launches"][name],
                       "repeat_launches": p2r["launches"][name]})
     emit({"kernels": table})

@@ -7,8 +7,8 @@ stdout, or the -o file, must be identical.  Covers FASTA and FASTQ reads,
 global mode, -s, and -o with --resume (test_torch_cli_modes.py covers the
 local and semiGlobal modes and --bug-compat, test_torch_cli_cigar*.py the
 -c runs, test_torch_cli_staged*.py the staged host path).  What the port
-does not run yet must exit 1 with its message: more than one device, a
-multi-process run.
+does not run yet must exit 1 with its message: a multi-process run;
+``--devices 2``, refused until the data-parallel step was ported, runs.
 """
 
 import io
@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 
 from bioinfo1_tpu import cli as jcli
+from bioinfo1_tpu import native as jnative
 from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch import cli as tcli
+from bioinfo1_tpu_torch import native as tnative
 
 
 @pytest.fixture(scope="module")
@@ -58,6 +60,22 @@ def _run(main, args):
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("BIOINFO1_PLATFORM", "cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_native_library():
+    """Both packages on the same host code.  Each loads
+    build/libbioinfo1_native.so once per process.  When the test workers
+    start together the library is built by several of them at once, in
+    place, and a load that meets a half-written file fails; the JAX
+    package then keeps its Python fallbacks for the whole process, whose
+    frequency-tie order is not the reference's (--bug-compat's banned set
+    and -s statistics; this failed test_bug_compat_fasta_statistics_match_jax
+    at random).  The port waits for a library that loads (native.py); give
+    the JAX package's loader a second attempt once it does."""
+    if tnative.get_lib() is not None and jnative.get_lib() is None:
+        jnative._load_attempted = False
+        assert jnative.get_lib() is not None
 
 
 @pytest.mark.parametrize("flags,reads", [
@@ -109,10 +127,20 @@ def test_cli_file_output_and_resume_match_jax(inputs):
 ])
 def test_unported_flags_exit_1(inputs, monkeypatch, flags, env, reads,
                                needle):
+    """A multi-process run is refused with rc 1 and a one-line message.
+    ``--devices 2`` was refused the same way until the data-parallel step
+    was ported: now it runs, on the CPU over one device, and prints what
+    the default run prints."""
     _, ref, fq, fa = inputs
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    rc, out, err = _run(tcli.main, flags + [ref, fq if reads == "fq" else fa])
+    args = [ref, fq if reads == "fq" else fa]
+    rc, out, err = _run(tcli.main, flags + args)
+    if needle == "--devices 2":
+        assert (rc, err) == (0, "")
+        assert out == _run(tcli.main, args)[1]
+        assert out.count("\n") > 20
+        return
     assert rc == 1
     assert out == ""
     assert needle in err and "not yet ported" in err

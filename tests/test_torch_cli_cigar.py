@@ -17,7 +17,8 @@ import pytest
 from bioinfo1_tpu import cli as jcli
 from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch import cli as tcli
-from test_torch_cli import _cpu, _run  # noqa: F401  (fixture)
+from test_torch_cli import (_cpu, _one_native_library,  # noqa: F401
+                            _run)
 
 N_READS = 17
 

@@ -6,7 +6,7 @@ different test workers.  Every case takes the parents realign pass."""
 
 import pytest
 
-from test_torch_cli import _cpu  # noqa: F401  (fixture)
+from test_torch_cli import _cpu, _one_native_library  # noqa: F401
 from test_torch_cli_cigar import check_cigar_run, cigar_inputs  # noqa: F401
 
 

@@ -9,7 +9,8 @@ import pytest
 
 from bioinfo1_tpu import cli as jcli
 from bioinfo1_tpu_torch import cli as tcli
-from test_torch_cli import _cpu, _run, inputs  # noqa: F401  (fixtures)
+from test_torch_cli import (_cpu, _one_native_library, _run,  # noqa: F401
+                            inputs)
 
 
 @pytest.mark.parametrize("flags", [

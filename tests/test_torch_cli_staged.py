@@ -20,6 +20,7 @@ import pytest
 from bioinfo1_tpu import cli as jcli
 from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch import cli as tcli
+from test_torch_cli import _one_native_library  # noqa: F401  (fixture)
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,8 @@ inputs of test_torch_cli_staged.py."""
 
 import pytest
 
-from test_torch_cli_staged import _cpu, _parity, inputs  # noqa: F401
+from test_torch_cli_staged import (_cpu, _one_native_library,  # noqa: F401
+                                   _parity, inputs)
 
 
 @pytest.mark.parametrize("cigar", [False, True], ids=["score", "c"])

@@ -696,6 +696,40 @@ def test_map_step_cigar_cuda_matches_cpu(dev, mode):
     np.testing.assert_array_equal(got.codes[:, ok], want.codes[:, ok])
 
 
+@pytest.mark.parametrize("kind", ["full", "band", "cigar"])
+def test_split_step_on_two_streams_matches_one(dev, kind):
+    """The fused step split over two streams of one card
+    (parallel/shard.py): each slice launches its own kernels from its
+    worker thread, and the gathered outputs equal the unsplit step's."""
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    index, arr, lens = _map_problem()
+    didx = dm.device_index_from_host(index, dev)
+    devices = ps.make_devices([dev, dev])
+    idx = ps.replicate_index(didx, devices)
+    assert list(idx) == [dev]
+    kw = dict(k=13, w=5, mode=0, budget=1024, region_cap=4096,
+              band=0 if kind == "full" else 256)
+    step, split = ((dm.map_step_cigar, ps.sharded_map_step_cigar)
+                   if kind == "cigar" else
+                   (dm.map_step, ps.sharded_map_step))
+    want = step(torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev),
+                didx, 1, -1, -1, **kw).to_numpy()
+    chains = ch.lis_chain.launches
+    got = split(devices, arr, lens, idx, 1, -1, -1, **kw)
+    assert ch.lis_chain.launches - chains == 2
+    assert devices.slices_run == 2
+    parts = [(got.base, want.base)] if kind == "cigar" else [(got, want)]
+    if kind == "cigar":
+        parts.append((got, want))
+    for g, w in parts:
+        for f in dataclasses.fields(w):
+            if f.name != "base":
+                np.testing.assert_array_equal(getattr(g, f.name),
+                                              getattr(w, f.name),
+                                              err_msg=f.name)
+    assert parts[0][1].mapped.sum() > 12
+
+
 @pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],
                                    ["-c", "-a", "semiGlobal"],
                                    ["-c", "-g", "1"],

@@ -148,17 +148,23 @@ def test_chain_work_counts_window_pairs(smoke):
 
 
 def test_device_time_merges_overlapping_intervals(smoke):
+    """Busy time is the union of the kernels' intervals; a record_function
+    scope, on the host or mirrored on the device as an annotation spanning
+    the kernels it launched, is no device time."""
     cuda = torch.autograd.DeviceType.CUDA
     cpu = torch.autograd.DeviceType.CPU
 
-    def ev(name, start, end, dev=cuda):
+    def ev(name, start, end, dev=cuda, annotation=False):
         rng = SimpleNamespace(start=start, end=end,
                               elapsed_us=lambda: end - start)
-        return SimpleNamespace(name=name, device_type=dev, time_range=rng)
+        return SimpleNamespace(name=name, device_type=dev, time_range=rng,
+                               is_user_annotation=annotation)
 
     prof = SimpleNamespace(events=lambda: [
         ev("k2", 0.0, 100.0), ev("k2", 50.0, 120.0), ev("k1", 200.0, 210.0),
-        ev("host_op", 0.0, 1000.0, cpu), ev("k3", 205.0, 208.0)])
+        ev("host_op", 0.0, 1000.0, cpu), ev("k3", 205.0, 208.0),
+        ev("map_batch", 0.0, 900.0, cpu, annotation=True),
+        ev("map_batch", 0.0, 210.0)])
     busy, top = smoke.device_time(prof)
     assert busy == 130.0 / 1e6
     assert top == [["k2", 2, 0.17], ["k1", 1, 0.01], ["k3", 1, 0.003]]
