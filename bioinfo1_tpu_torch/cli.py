@@ -5,12 +5,12 @@ package's CLI for the flags the port runs: ``-a -m -n -g -k -w -f -c -s -o
 --sam-cigar --bug-compat --resume --profile --batch-size --save-index
 --load-index --devices -h --version``.  The device comes from
 ``BIOINFO1_PLATFORM`` (``cuda`` by default, or ``cpu``).  ``--devices N``
-caps the fused step's data-parallel split at N local CUDA devices (0, the
-default: all, as the largest power-of-two prefix; 1: one); on the CPU the
-run uses one device.  ``-c`` where no exactness certificate exists (``-a
-global`` with ``-g >= 0``, ``-a local`` / ``semiGlobal`` with ``-g > 0``)
-and ``--bug-compat`` on a FASTA reads file (FASTA match nesting) run on the
-mapper's staged host path.
+deals the batches to at most N local CUDA devices, each holding a copy of
+the index (0, the default: all, as the largest power-of-two prefix; 1:
+one); on the CPU the run uses one device.  ``-c`` where no exactness
+certificate exists (``-a global`` with ``-g >= 0``, ``-a local`` /
+``semiGlobal`` with ``-g > 0``) and ``--bug-compat`` on a FASTA reads file
+(FASTA match nesting) run on the mapper's staged host path.
 
 Refused with rc 1 and a one-line message, never silently ignored: the
 multi-process variables ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
@@ -251,7 +251,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         from bioinfo1_tpu_torch.index.builder import save_index as do_save
         do_save(mapper.index, save_index)
     with timers.stage("index_upload"):
-        mapper.upload_index()
+        mapper.device_index()
 
     if statistic:
         idx = mapper.index

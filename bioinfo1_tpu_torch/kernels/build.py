@@ -72,6 +72,9 @@ SMEM_LIMIT = 220 * 1024
 
 _lock = threading.Lock()
 _lib = None
+# Kernel launches by CUDA device index, every kernel together (the wrappers
+# count by kernel); read and reset like a wrapper's count.
+launches_by_device: dict = {}
 
 
 def _sources():
@@ -192,7 +195,7 @@ def launch(wrapper, name: str, *args, device: torch.device,
     current, so the library's own CUDA runtime launches there whatever
     device the calling thread had made current; raise on a CUDA error, else
     count one launch on ``wrapper.<counter>`` (``launches`` unless the
-    wrapper serves two kernels)."""
+    wrapper serves two kernels) and on ``launches_by_device``."""
     lib = library()
     with torch.cuda.device(device):
         err = getattr(lib, name)(*args)
@@ -201,3 +204,5 @@ def launch(wrapper, name: str, *args, device: torch.device,
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     with _lock:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        launches_by_device[device.index] = (
+            launches_by_device.get(device.index, 0) + 1)

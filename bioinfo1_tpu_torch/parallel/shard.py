@@ -1,31 +1,31 @@
-"""Data-parallel fused map step over the local devices: one process, the
-index replicated on every device (port of the one-process part of
+"""Data parallelism over the local devices: one process, the index
+replicated on every device (the one-process part of
 bioinfo1_tpu/parallel/shard.py: ``make_mesh``, ``auto_mesh``,
-``replicate_index``, ``sharded_map_step``, ``sharded_map_step_cigar``).
+``replicate_index``).
 
-The JAX package runs the step under ``shard_map`` on a 1-D mesh: reads
-split on the batch axis, the index replicated, outputs gathered back in
-input order.  Here the split is host code.  A ``DeviceSet`` (the mesh's
-counterpart) is an ordered list of devices with one CUDA stream and one
-worker thread per entry.  A padded (B, L) batch goes in equal contiguous
-slices, one per entry; each slice is uploaded and runs ``dm.map_step`` /
-``dm.map_step_cigar`` on its entry's device and stream against that
-device's index copy, and comes back to the host, where the slices are
-concatenated in input order.  No device talks to another inside the step.
+The JAX package splits each padded batch over a 1-D mesh under
+``shard_map``: one compiled program, so the split costs no host dispatch.
+Here every fused step is a few hundred PyTorch ops dispatched from the host,
+and that dispatch, not the device, bounds a 2-8 kb pass; a batch split into
+N slices would dispatch them N times.  So the unit of the split is the
+whole batch: a ``DeviceSet`` deals the mapper's batches to its entries in
+turn, and each batch runs wholly on its entry's device against that
+device's index copy, with one dispatch, as on one device.  Every read's
+result depends on that read alone, so the output is the one-device run's
+byte for byte.
 
-A device may repeat in the list: the CPU tests split over ``[cpu] * N``,
+A device may repeat in the list: the CPU tests deal over ``[cpu] * N``,
 and on one card ``[cuda:0, cuda:0]`` runs two streams against one index
 copy.  ``local_devices`` (the CLI's ``--devices``) never repeats one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from concurrent.futures import ThreadPoolExecutor, wait
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Sequence
 
-import numpy as np
 import torch
 
 from bioinfo1_tpu_torch.pipeline import device_map as dm
@@ -33,8 +33,8 @@ from bioinfo1_tpu_torch.pipeline import device_map as dm
 
 def pow2_prefix(n_available: int, max_devices: int = 0) -> int:
     """The largest power of two <= ``n_available``, capped at
-    ``max_devices`` when that is above 0 (at least 1).  Power-of-two so the
-    pipeline's canonical batch padding always divides by it."""
+    ``max_devices`` when that is above 0 (at least 1), as ``auto_mesh``
+    sizes its mesh."""
     n = min(n_available, max_devices) if max_devices > 0 else n_available
     p = 1
     while p * 2 <= n:
@@ -42,84 +42,75 @@ def pow2_prefix(n_available: int, max_devices: int = 0) -> int:
     return p
 
 
+def local_devices(first: torch.device,
+                  max_devices: int = 0) -> List[torch.device]:
+    """The CUDA devices from ``first`` on, as many as ``pow2_prefix``
+    allows (``auto_mesh``'s counterpart; ``first`` is cuda:0 unless the
+    caller chose another card)."""
+    n = torch.cuda.device_count() - first.index
+    return [torch.device("cuda", first.index + i)
+            for i in range(pow2_prefix(n, max_devices))]
+
+
 class DeviceSet:
-    """Ordered devices of a data-parallel split (a device may repeat), with
-    one CUDA stream and one worker thread per entry; ``slices_run`` counts
-    the slices it has run."""
+    """Ordered devices that batches are dealt to in turn (a device may
+    repeat).  An entry whose CUDA device repeats in the list has a stream
+    of its own, so that its batches overlap the other entries'; any other
+    entry runs on its device's default stream, as one device does.
+    ``batches[i]`` counts the batches dealt to entry ``i``."""
 
     def __init__(self, devices: Sequence[torch.device]) -> None:
-        devs = []
-        for d in devices:
-            d = torch.device(d)
-            if d.type == "cuda" and d.index is None:
-                d = torch.device("cuda", torch.cuda.current_device())
-            devs.append(d)
+        devs = [torch.device(d) for d in devices]
         if not devs:
             raise ValueError("DeviceSet: no devices")
+        for d in devs:
+            if d.type == "cuda" and d.index is None:
+                raise ValueError(f"DeviceSet: {d} names no card")
         self.devices: List[torch.device] = devs
-        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+        self.streams = [torch.cuda.Stream(d)
+                        if d.type == "cuda" and devs.count(d) > 1 else None
                         for d in devs]
-        self._pool = ThreadPoolExecutor(len(devs),
-                                        thread_name_prefix="bioinfo1-shard")
+        self.batches = [0] * len(devs)
+        self._next = 0
         self._lock = threading.Lock()
-        self.slices_run = 0
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
+        self._local = threading.local()
 
     def distinct(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
 
-    def map(self, fn: Callable, n_rows: int) -> list:
-        """``fn(device, lo, hi)`` on each entry's contiguous slice of
-        ``n_rows`` rows, each on its own worker thread with the entry's
-        device current and its stream the current stream, which the thread
-        synchronizes before it returns.  Results in entry order; the first
-        slice error is raised once every slice has ended."""
-        if n_rows % self.size:
-            raise ValueError(f"DeviceSet.map: {n_rows} rows do not split "
-                             f"over {self.size} devices")
-        per = n_rows // self.size
-        futs = [self._pool.submit(self._run, i, fn, i * per, (i + 1) * per)
-                for i in range(self.size)]
-        wait(futs)
-        return [f.result() for f in futs]
+    def current(self) -> torch.device:
+        """The device of the batch this thread runs (see ``batch``), else
+        the first device."""
+        return getattr(self._local, "device", self.devices[0])
 
-    def _run(self, i: int, fn: Callable, lo: int, hi: int):
-        d, stream = self.devices[i], self.streams[i]
-        if stream is None:
-            out = fn(d, lo, hi)
-        else:
-            with torch.cuda.device(d), torch.cuda.stream(stream):
-                out = fn(d, lo, hi)
-                stream.synchronize()
+    @contextlib.contextmanager
+    def batch(self) -> Iterator[torch.device]:
+        """Deal the next entry to the batch this thread runs in the block:
+        its device is ``current()`` on this thread and, on CUDA, the
+        current device, with the entry's stream (if it has one) the current
+        stream.  Yields the device."""
         with self._lock:
-            self.slices_run += 1
-        return out
+            i = self._next
+            self._next = (i + 1) % len(self.devices)
+            self.batches[i] += 1
+        d = self.devices[i]
+        self._local.device = d
+        try:
+            if d.type == "cuda":
+                with torch.cuda.device(d), \
+                        torch.cuda.stream(self.streams[i]):
+                    yield d
+            else:
+                yield d
+        finally:
+            del self._local.device
 
 
-def make_devices(devices: Sequence[torch.device]) -> DeviceSet:
-    """A split over an explicit device list (``make_mesh``'s counterpart)."""
-    return DeviceSet(devices)
-
-
-def local_devices(max_devices: int = 0) -> Optional[DeviceSet]:
-    """The largest power-of-two prefix of the CUDA devices, capped at
-    ``max_devices`` when that is above 0 (``auto_mesh``'s counterpart);
-    None when that leaves one device: the unsplit step needs no split."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    p = pow2_prefix(n, max_devices)
-    if p <= 1:
-        return None
-    return make_devices([torch.device("cuda", i) for i in range(p)])
-
-
-def replicate_index(index: dm.DeviceIndex,
-                    devices: DeviceSet) -> Dict[torch.device, dm.DeviceIndex]:
-    """One copy of a packed device index per distinct device (the given one
-    serves its own device), every copy complete before the split's streams
-    read it."""
+def replicate_index(index: dm.DeviceIndex, devices: DeviceSet,
+                    ) -> Dict[torch.device, dm.DeviceIndex]:
+    """One copy of a packed device index per distinct device of the set
+    (the given one serves its own device), every copy complete before any
+    stream reads it."""
     out = {}
     for d in devices.distinct():
         if index.key_hash.device == d:
@@ -133,57 +124,3 @@ def replicate_index(index: dm.DeviceIndex,
         if d.type == "cuda":
             torch.cuda.synchronize(d)
     return out
-
-
-def _gather(parts: list):
-    """Concatenate host dataclass outputs of the slices in input order; 2-D
-    arrays (the walk codes, (steps, rows)) on their batch axis, 1."""
-    first = parts[0]
-    vals = {}
-    for f in dataclasses.fields(first):
-        got = [getattr(p, f.name) for p in parts]
-        if dataclasses.is_dataclass(got[0]):
-            vals[f.name] = _gather(got)
-        else:
-            vals[f.name] = np.concatenate(got, axis=got[0].ndim - 1)
-    return type(first)(**vals)
-
-
-def _sharded(step, devices: DeviceSet, reads: np.ndarray, lens: np.ndarray,
-             indexes: Dict[torch.device, dm.DeviceIndex], match: int,
-             mismatch: int, gap: int, kw: dict):
-    def run(d, lo, hi):
-        with torch.profiler.record_function("shard.upload"):
-            r = torch.from_numpy(reads[lo:hi]).to(d)
-            n = torch.from_numpy(lens[lo:hi]).to(d)
-        with torch.profiler.record_function("shard.step"):
-            out = step(r, n, indexes[d], match, mismatch, gap, **kw)
-        with torch.profiler.record_function("shard.fetch"):
-            return out.to_numpy()
-    return _gather(devices.map(run, reads.shape[0]))
-
-
-def sharded_map_step(devices: DeviceSet, reads: np.ndarray, lens: np.ndarray,
-                     indexes: Dict[torch.device, dm.DeviceIndex],
-                     match: int, mismatch: int, gap: int,
-                     **kw) -> dm.MapOut:
-    """``dm.map_step`` over ``devices``: a (B, L) uint8 host batch, B a
-    multiple of ``devices.size``, and ``indexes`` from ``replicate_index``;
-    keyword arguments as ``dm.map_step``'s.  Returns the whole batch's
-    MapOut as host arrays, equal field for field to the unsplit step's
-    ``to_numpy()`` (every read's result is its own)."""
-    return _sharded(dm.map_step, devices, reads, lens, indexes, match,
-                    mismatch, gap, kw)
-
-
-def sharded_map_step_cigar(devices: DeviceSet, reads: np.ndarray,
-                           lens: np.ndarray,
-                           indexes: Dict[torch.device, dm.DeviceIndex],
-                           match: int, mismatch: int, gap: int,
-                           **kw) -> dm.CigarOut:
-    """``dm.map_step_cigar`` over ``devices``, as ``sharded_map_step``.  The
-    walk codes (steps, B) are gathered on their batch axis; a slice's step
-    count depends only on L, the region cap and the band, so every slice
-    has the whole batch's."""
-    return _sharded(dm.map_step_cigar, devices, reads, lens, indexes, match,
-                    mismatch, gap, kw)

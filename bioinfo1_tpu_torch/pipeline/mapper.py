@@ -35,19 +35,19 @@ error (up to 6 attempts), else on the host path - or, when the host path
 itself fails, reported unmapped.  A CUDA error that the host path meets
 again ends the run (a sticky error poisons the context).
 
-With more than one device (``devices``: 0 = the largest power-of-two prefix
-of the local CUDA devices, N = at most N, 1 = one; or an explicit list) the
-fused step splits each padded batch over them (parallel/shard.py): one
-index copy per device, one stream and worker thread per entry, the slices'
-outputs gathered in input order.  The realign pass and the staged host path
-stay on the first device, as in the JAX package.
+With more than one device (``cfg.devices`` on CUDA: 0 = the largest
+power-of-two prefix of the local devices, N = at most N, 1 = one; or an
+explicit list) the batches are dealt to the devices in turn
+(parallel/shard.py): each batch - fused step, realign pass and host path -
+runs wholly on its device against that device's index copy.  The JAX
+package splits every batch over its mesh instead; here that would repeat
+the step's host dispatch once per slice.
 
 The host steps carry ``record_function`` scopes that name them in a trace
 (utils/tracing.device_trace): ``map_batch``; ``fused`` with ``fused.pack``,
-``.upload``, ``.step``, ``.fetch`` (``fused.split`` in their place when
-split) and ``.adapt``; ``realign``, ``band_pass``, ``host_path``,
-``decode``; and on the caller's thread ``iter.wait`` (waiting for a batch)
-and ``format``.
+``.upload``, ``.step``, ``.fetch`` and ``.adapt``; ``realign``,
+``band_pass``, ``host_path``, ``decode``; and on the caller's thread
+``iter.wait`` (waiting for a batch) and ``format``.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ class MapperConfig:
     initial_match_budget: int = 512
     bucket_growth: float = 1.5
     # device parallelism: 0 = all local devices (largest pow-2 prefix),
-    # 1 = force single-device, N = cap the split at N devices
+    # 1 = force single-device, N = deal batches to at most N devices
     devices: int = 0
 
 
@@ -211,14 +211,13 @@ def _batch_cap(b: int, floor: int) -> int:
     return p
 
 
-def _pack_reads(seqs: Sequence[str], min_len: int, len_to: int = 0,
-                min_batch: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+def _pack_reads(seqs: Sequence[str], min_len: int,
+                len_to: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Pack strings into a right-padded (B, L) uint8 batch with canonical
-    dims (``len_to`` pins L to the caller's bucket cap; B is at least
-    ``min_batch`` and a multiple of it: a split's size divides it)."""
+    dims (``len_to`` pins L to the caller's bucket cap; B is at least 8)."""
     L = max(max((len(s) for s in seqs), default=1), min_len)
     L = max(L, len_to) if len_to >= L else _pow2_at_least(L, 16)
-    B = _batch_cap(len(seqs), min_batch)
+    B = _batch_cap(len(seqs), 8)
     arr = np.zeros((B, L), dtype=np.uint8)
     lens = np.zeros((B,), dtype=np.int32)
     for i, s in enumerate(seqs):
@@ -333,24 +332,25 @@ def _free_memory_bytes(device: torch.device) -> int:
 class Mapper:
     """Reusable mapping engine bound to one reference index and its devices.
 
-    ``device`` (default: ``resolve_device()``) is where everything but a
-    split fused step runs; ``cfg.devices`` resolves the split on first use
-    when the device is a CUDA device.  ``devices``, an explicit list (a
-    device may repeat: the tests split over ``[cpu] * N``), sets the split
-    instead, and its first entry is ``device``."""
+    ``device`` (default: ``resolve_device()``) is the first device; on CUDA
+    ``cfg.devices`` adds the local devices after it (``ps.local_devices``).
+    ``devices``, an explicit list instead of ``device`` (a device may
+    repeat: the tests deal over ``[cpu] * N``), sets them all.  Batches are
+    dealt to ``self.devices`` in turn."""
 
     def __init__(self, reference_records: Sequence[Tuple[str, str]],
                  cfg: MapperConfig, load_index: Optional[str] = None,
                  device: Optional[torch.device] = None,
                  devices: Optional[Sequence[torch.device]] = None):
         self.cfg = cfg
-        self._shards: Optional[ps.DeviceSet] = None
-        self._shards_resolved = devices is not None
-        if devices is not None:
-            if len(devices) > 1:
-                self._shards = ps.make_devices(devices)
-            device = torch.device(devices[0])
-        self.device = device if device is not None else resolve_device()
+        if devices is None:
+            device = device if device is not None else resolve_device()
+            devices = ([device] if device.type != "cuda" or cfg.devices == 1
+                       else ps.local_devices(device, cfg.devices))
+        elif device is not None:
+            raise ValueError("Mapper: give device or devices, not both")
+        self.devices = ps.DeviceSet(devices)
+        self.device = self.devices.devices[0]
         # Only the first reference record is used (quirk #10).
         self.ref_name, reference = reference_records[0]
         if load_index:
@@ -381,47 +381,21 @@ class Mapper:
         self._band_by_key: dict = {}     # (cap, for_cigar) -> band
         self._budget_boost: dict = {}    # cap -> pow-2 budget multiplier
         self._load_band_cache()
-        self._device_index = None
-        self._replicated_index = None
-        self._strand_tensors = None
+        self._device_index: Optional[dict] = None   # device -> index
+        self._strand_tensors: dict = {}             # device -> strands
 
     def device_index(self) -> dm.DeviceIndex:
-        """The index on the device, packed and uploaded at first use."""
+        """The index on the device of this thread's batch (the first
+        device outside a batch).  At first use it is packed and uploaded to
+        the first device and copied from there to the others (replicated;
+        the JAX package's hash-range-sharded layout is not ported)."""
         # Locked: two first batches racing here would upload it twice.
         with self._counters_lock:
             if self._device_index is None:
-                self._device_index = dm.device_index_from_host(
-                    self.index, self.device)
-            return self._device_index
-
-    def _get_devices(self) -> Optional[ps.DeviceSet]:
-        """The fused step's split (None: one device), resolved at first
-        use: ``cfg.devices`` over the local CUDA devices, none on the
-        CPU."""
-        with self._counters_lock:
-            if not self._shards_resolved:
-                if self.cfg.devices != 1 and self.device.type == "cuda":
-                    self._shards = ps.local_devices(self.cfg.devices)
-                self._shards_resolved = True
-            return self._shards
-
-    def _get_replicated_index(self, shards: ps.DeviceSet) -> dict:
-        """The index on every device of the split, by device (replicated;
-        the JAX package's hash-range-sharded layout is not ported)."""
-        didx = self.device_index()
-        with self._counters_lock:
-            if self._replicated_index is None:
-                self._replicated_index = ps.replicate_index(didx, shards)
-            return self._replicated_index
-
-    def upload_index(self) -> None:
-        """Pack and upload the index to the device, and to every device of
-        the split."""
-        shards = self._get_devices()
-        if shards is None:
-            self.device_index()
-        else:
-            self._get_replicated_index(shards)
+                self._device_index = ps.replicate_index(
+                    dm.device_index_from_host(self.index, self.device),
+                    self.devices)
+            return self._device_index[self.devices.current()]
 
     def _band_cache_path(self):
         """Adaptive-band persistence (perf-only state), keyed by the scoring
@@ -558,20 +532,27 @@ class Mapper:
         self._band_by_key[(cap, False)] = min(new, max_band)
 
     def _to_device(self, *arrays: np.ndarray):
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        """Host arrays on the device of this thread's batch."""
+        dev = self.devices.current()
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
     def _strand_index(self, fwd: bool):
-        """One strand's sorted (hash, pos) index on the device, for the
-        staged path's per-strand lookups; uploaded at first use."""
+        """One strand's sorted (hash, pos) index on the device of this
+        thread's batch, for the staged path's per-strand lookups; uploaded
+        there at first use."""
+        dev = self.devices.current()
         with self._counters_lock:
-            if self._strand_tensors is None:
-                self._strand_tensors = tuple(
+            if dev not in self._strand_tensors:
+                self._strand_tensors[dev] = tuple(
                     (torch.from_numpy(s.hash_sorted.astype(np.int64))
-                     .to(self.device),
+                     .to(dev),
                      torch.from_numpy(s.pos_sorted.astype(np.int32))
-                     .to(self.device))
+                     .to(dev))
                     for s in (self.index.fwd, self.index.rev))
-            return self._strand_tensors[0 if fwd else 1]
+                if dev.type == "cuda":
+                    # Other streams of the card read them.
+                    torch.cuda.current_stream(dev).synchronize()
+            return self._strand_tensors[dev][0 if fwd else 1]
 
     def _region_strings(self, seq: str, qb: int, qe: int, tb: int, te: int,
                         fwd: bool) -> Tuple[str, str]:
@@ -819,12 +800,10 @@ class Mapper:
         totals (key -1: the batch maximum)."""
         cfg = self.cfg
         floor = cfg.k + cfg.w - 1
-        shards = self._get_devices()
         with record_function("fused.pack"):
             arr, lens = _pack_reads(
                 seqs, floor, len_to=_bucket_cap(max(len(s) for s in seqs),
-                                                floor),
-                min_batch=shards.size if shards else 8)
+                                                floor))
             dash_free = bool(self._dash_free_sticky and self._ref_dash_free
                              and not (arr == 45).any())
         cap = arr.shape[1]
@@ -836,14 +815,8 @@ class Mapper:
                   region_cap=region_cap, oob_end_windows=cfg.oob_end_windows,
                   dash_free=dash_free)
 
-        def step(fn, sharded_fn, band):
-            """The fused step on the batch, its outputs as host arrays:
-            split over the devices, or on the one device."""
-            if shards is not None:
-                idx = self._get_replicated_index(shards)
-                with record_function("fused.split"):
-                    return sharded_fn(shards, arr, lens, idx, cfg.match,
-                                      cfg.mismatch, cfg.gap, band=band, **kw)
+        def step(fn, band):
+            """The fused step on the batch, its outputs as host arrays."""
             with record_function("fused.upload"):
                 reads_d, lens_d = self._to_device(arr, lens)
             with record_function("fused.step"):
@@ -856,12 +829,11 @@ class Mapper:
         cig = None
         cig_by_i: dict = {}
         if cfg.output_cigar:
-            # The parent tensor's ceiling (on the whole batch, as in the JAX
-            # package, so the bands match the unsplit step's) also clamps a
-            # band persisted under a smaller batch.
+            # The parent tensor's ceiling also clamps a band persisted under
+            # a smaller batch.
             max_band = self._max_fused_band(cap, arr.shape[0])
             band = min(self._bucket_band(cap, True), max_band)
-            cig = step(dm.map_step_cigar, ps.sharded_map_step_cigar, band)
+            cig = step(dm.map_step_cigar, band)
             out = cig.base
             mapped = out.mapped[:n_real]
             self._adapt_band_cigar(cap, cig, n_real, band, max_band)
@@ -874,7 +846,7 @@ class Mapper:
                 cig.goal_j, cig.q_len, cig.t_len)
         else:
             band = self._bucket_band(cap, False)
-            out = step(dm.map_step, ps.sharded_map_step, band)
+            out = step(dm.map_step, band)
             self._adapt_band_score(cap, out, n_real)
         results: List[ReadMapping] = []
         retry: List[int] = []
@@ -933,9 +905,14 @@ class Mapper:
 
     @scoped("map_batch")
     def map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
-        """Map one batch of reads: the fused step under the budget ladder,
-        the realign pass for certificate misses with a provable band, and
-        the staged host path for the rest."""
+        """Map one batch of reads on the next device in turn: the fused
+        step under the budget ladder, the realign pass for certificate
+        misses with a provable band, and the staged host path for the
+        rest."""
+        with self.devices.batch():
+            return self._map_batch(seqs)
+
+    def _map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
         cfg = self.cfg
         # FASTA match nesting exists only on the staged path.
         fused = not cfg.fasta_match_nesting
@@ -1153,14 +1130,13 @@ class Mapper:
         BIOINFO1_INFLIGHT_BYTES overrides.  The default is half of the
         device's free memory measured after the index upload, so it follows
         the card (the JAX package's 7e9 was sized for a TPU beside its
-        index); on the CPU it is half of the available host memory.  A
-        split batch spreads its workspace over the devices; the first
-        device, which also runs the realign pass and the host path, stays
-        the measure."""
+        index); on the CPU it is half of the available host memory.  With
+        several devices the batches in flight spread over them; the first
+        device's free memory stays the measure."""
         env = os.environ.get("BIOINFO1_INFLIGHT_BYTES")
         if env:
             return int(float(env))
-        self.upload_index()
+        self.device_index()
         return _free_memory_bytes(self.device) // 2
 
     def map_records_iter(self, records: Sequence[Tuple[str, str]],

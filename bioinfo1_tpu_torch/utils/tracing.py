@@ -117,8 +117,8 @@ def scoped(name: str):
 @contextlib.contextmanager
 def device_trace(log_dir: str,
                  device: torch.device) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed code on every thread (the mapper maps batches
-    and shards on worker threads), with CUDA activity when ``device`` is a
+    """Profile the enclosed code on every thread (the mapper maps its
+    batches on worker threads), with CUDA activity when ``device`` is a
     CUDA device; on exit write the Chrome trace to ``log_dir/trace.json``.
     Yields the profiler, whose ``events()`` are readable after the block."""
     activities = [torch.profiler.ProfilerActivity.CPU]

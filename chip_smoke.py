@@ -52,13 +52,15 @@ run):
      (no exactness certificate) on the first 256 reads, and --bug-compat
      on a FASTA copy of the first 512 (FASTA match nesting, score-only);
      t_host_s > 0 and K1, K4 and K5 (K3 in the FASTA run) launched.
-  2d. the fused step split over two streams of cuda:0 (parallel/shard.py,
-     one index copy): Mapper(devices=[cuda:0, cuda:0]) on phase 2's 2,048
-     reads in-process, score-only and then -c, each beside an unsplit
-     mapper (two passes each: fresh, then adapted bands); K1, K2 and K3,
-     then K1, K4 and K5 must launch (from the split's worker threads) and
-     every pass's PAF must equal phase 2's and phase 2c's -c run byte for
-     byte; reads/s of each pass beside the CLI run's.
+  2d. batches dealt to two streams of cuda:0 (parallel/shard.py, one
+     index copy): Mapper(devices=[cuda:0, cuda:0]) on phase 2's 2,048
+     reads in-process, score-only and then -c, beside a one-entry mapper;
+     batch by batch their results and counters (but the timings) must be
+     equal; then four passes on adapted bands (one entry, two, two, one):
+     K1, K2 and K3, then K1, K4 and K5 must launch (from the batch
+     threads), both entries must be dealt batches and every pass's PAF
+     must equal phase 2's and phase 2c's -c run byte for byte; reads/s of
+     each pass beside the CLI run's.
   2L. the main path at 50 kb: 16 ONT-profile reads of 50 kb from the
      bench's genome through Mapper.map_records in-process (score-only,
      fresh bands): as planned (their bands take the cluster path, which
@@ -104,9 +106,15 @@ run):
   it runs from an older tree's root too.  With --split-trial phase 2m
   runs the CLI on phase 2's inputs with --devices 1 and then --devices 0
   (every visible card, the largest power-of-two prefix), score-only and
-  -c, and the run ends there: the PAFs must be byte-identical, each card
-  must hold an index copy and the split must have run; reads/s of both.
-  It is the one mode that uses more than one card.
+  -c: the PAFs must be byte-identical, no batch may raise, each card must
+  hold an index copy and launch kernels; then a one-card and an all-card
+  mapper in-process, a fresh pass each and six timed passes (one, all,
+  all, one, one, all), every PAF the same; reads/s of each; and the run
+  ends there.  It is the one mode that uses more than one card.
+
+  Every CLI run and in-process mapper of every phase must end with the
+  mapper's ``faults`` at 0: a batch that raised (and was isolated by
+  map_batch) fails the run.
 
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
@@ -131,6 +139,7 @@ import dataclasses
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1324,7 +1333,9 @@ def launch_counters() -> dict:
 
 
 def reset_launches() -> dict:
+    from bioinfo1_tpu_torch.kernels import build
     from bioinfo1_tpu_torch.ops import band as bd
+    build.launches_by_device.clear()
     counters = launch_counters()
     for wrapper, attr in counters.values():
         setattr(wrapper, attr, 0)
@@ -1336,9 +1347,11 @@ def reset_launches() -> dict:
 def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
             min_frac: float = 0.9) -> tuple:
     """One GPU CLI run with --profile, the kernel counts set to 0 just
-    before it and read just after; checks rc 0, the kernels in
-    ``must_launch`` and that >= ``min_frac`` of reads >= 2 kb mapped."""
+    before it and read just after; checks rc 0, that no batch raised, the
+    kernels in ``must_launch`` and that >= ``min_frac`` of reads >= 2 kb
+    mapped."""
     from bioinfo1_tpu_torch import cli
+    from bioinfo1_tpu_torch.kernels import build
     out = os.path.join(WORK, out_name)
     err = io.StringIO()
     counters = reset_launches()
@@ -1347,9 +1360,12 @@ def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
+    by_device = dict(build.launches_by_device)
     sys.stderr.write(err.getvalue())
     check(rc == 0, f"cli.main {flags} returned {rc}")
     prof = parse_profile(err.getvalue())
+    check(prof["mapper"]["faults"] == 0,
+          f"{flags}: {prof['mapper']['faults']} batches raised")
     for k in must_launch:
         check(launches[k] >= 1, f"kernel {k} never launched in {flags}")
     with open(out) as fh:
@@ -1367,7 +1383,8 @@ def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
             "index_build_s": prof["stages_s"]["index_build"],
             "index_upload_s": prof["stages_s"]["index_upload"],
             "mapped_frac_ge_2kb": frac, "paf_lines": len(lines),
-            "launches": launches, "stages_s": prof["stages_s"],
+            "launches": launches, "launches_by_device": by_device,
+            "stages_s": prof["stages_s"],
             "mapper": prof["mapper"]}, lines
 
 
@@ -1467,15 +1484,21 @@ def phase_staged(ref, paths, recs) -> tuple:
 
 
 def phase_split(genome: str, recs, cli: dict) -> dict:
-    """The fused step split over two streams of cuda:0 and one index copy,
-    in-process on phase 2's reads, score-only and then -c.  Beside each
-    split mapper an unsplit one maps the same reads; each runs two passes
-    (fresh bands, then adapted), unsplit first.  The kernel counts are set
-    to 0 just before the split mapper's first pass and read just after it.
-    ``cli`` maps "score" and "c" to the unsplit CLI run of the same reads
-    (phase 2, phase 2c's -c run): its PAF lines and its row."""
+    """Batches dealt to two streams of cuda:0 (parallel/shard.py) with one
+    index copy, in-process on phase 2's reads, score-only and then -c,
+    beside a one-entry mapper.  First batch by batch (chunks of 512 reads,
+    no batch in flight beside another, so both mappers start each batch
+    from the same bands): the results and every counter but the timings
+    must be equal.  Then four map_records passes on the adapted bands, one
+    entry, two, two, one: each PAF must equal the CLI run's byte for byte.
+    The kernel counts are set to 0 just before the two-entry mapper's first
+    pass and read just after it.  No batch may raise (``faults``).  ``cli``
+    maps "score" and "c" to the CLI run of the same reads (phase 2, phase
+    2c's -c run): its PAF lines and its row."""
+    from bioinfo1_tpu_torch.kernels import build
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
     dev = torch.device("cuda", 0)
+    seqs = [s for _, s in recs]
     runs = {}
     for key, cfg, kernels in (
             ("score", MapperConfig(),
@@ -1485,39 +1508,61 @@ def phase_split(genome: str, recs, cli: dict) -> dict:
         want, cli_row = cli[key]
         row = {"reads": len(recs),
                "cli_reads_per_s_map": cli_row["reads_per_s_map"]}
-        for how, devices in (("unsplit", [dev]), ("split", [dev, dev])):
-            mapper = Mapper([("ecoli_like", genome)], cfg, devices=devices)
-            mapper.upload_index()
-            for name in ("fresh", "adapted"):
+        mappers = {"one": Mapper([("ecoli_like", genome)], cfg,
+                                 devices=[dev]),
+                   "two": Mapper([("ecoli_like", genome)], cfg,
+                                 devices=[dev, dev])}
+        batchwise = {}
+        for how, mapper in mappers.items():
+            mapper.device_index()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = [mapper.map_batch(seqs[o:o + 512])
+                       for o in range(0, len(seqs), 512)]
+            torch.cuda.synchronize()
+            row[f"{how}_batchwise_reads_per_s"] = (
+                len(seqs) / (time.perf_counter() - t0))
+            batchwise[how] = (results, {
+                k: v for k, v in mapper.counters.as_dict().items()
+                if not k.startswith("t_")})
+        check(batchwise["one"] == batchwise["two"],
+              f"split {key}: batch by batch, the two-entry mapper's results "
+              "or counters differ from the one-entry mapper's")
+        two = mappers["two"]
+        dealt = list(two.devices.batches)
+        for i, how in enumerate(("one", "two", "two", "one")):
+            mapper = mappers[how]
+            if i == 1:
                 counters = reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                lines = mapper.map_records(recs)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                check(lines == want, f"{how} {key} {name}: the PAF differs "
-                      "from the CLI run's")
-                row[f"{how}_{name}_reads_per_s"] = len(recs) / wall
-                if how == "split" and name == "fresh":
-                    row["launches"] = {k: getattr(w, a)
-                                       for k, (w, a) in counters.items()}
-            if how == "split":
-                shards = mapper._get_devices()
-                check(shards.slices_run >= 2
-                      and len(mapper._replicated_index) == 1,
-                      f"split {key}: the step did not run split over one "
-                      "index copy")
-                row.update(slices=shards.slices_run,
-                           mapper=mapper.counters.as_dict())
-                del shards
-            del mapper
-            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines = mapper.map_records(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 1:
+                row["launches"] = {k: getattr(w, a)
+                                   for k, (w, a) in counters.items()}
+            check(lines == want, f"split {key} pass {i} ({how}): the PAF "
+                  "differs from the CLI run's")
+            row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
+        check(min(b - d for b, d in zip(two.devices.batches, dealt)) >= 1
+              and len(two._device_index) == 1,
+              f"split {key}: an entry was dealt no batch, or the index was "
+              "copied")
+        for how, mapper in mappers.items():
+            check(mapper.counters.faults == 0,
+                  f"split {key}: {mapper.counters.faults} batches of the "
+                  f"{how}-entry mapper raised")
         for k in kernels:
             check(row["launches"][k] >= 1, f"split {key}: kernel {k} never "
                   "launched")
-        row["paf_lines"] = len(want)
-        row["byte_identical"] = True
+        row.update(dealt=two.devices.batches, paf_lines=len(want),
+                   byte_identical=True, mapper=two.counters.as_dict(),
+                   batchwise_counters=batchwise["two"][1],
+                   launches_by_device=dict(build.launches_by_device))
         runs[key] = row
+        del mappers, two, mapper, batchwise
+        torch.cuda.empty_cache()
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in runs["score"]["launches"]}
     return {"phase": "2d", "devices": ["cuda:0", "cuda:0"], "runs": runs,
@@ -1525,36 +1570,77 @@ def phase_split(genome: str, recs, cli: dict) -> dict:
 
 
 def phase_split_trial() -> dict:
-    """The CLI split over every visible card against one card (phase 2m)."""
+    """Batches dealt to every visible card against one card (phase 2m), on
+    phase 2's inputs, score-only and -c.  The CLI with --devices 1 and then
+    --devices 0: byte-identical PAFs, no batch raised, kernels launched on
+    card 0 alone and then on every card, each card holding its index copy.
+    Then in-process a one-card and an all-card mapper: a pass each on fresh
+    bands (every card's first launches), then timed passes on adapted bands
+    in the order one, all, all, one, one, all, each PAF the CLI's."""
     from bioinfo1_tpu_torch.parallel import shard as ps
-    n_dev = torch.cuda.device_count()
-    shards = ps.local_devices(0)
-    check(shards is not None, f"--split-trial needs >= 2 cards ({n_dev})")
-    ref, paths, recs, _g, _short = write_inputs()
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    dev = torch.device("cuda", 0)
+    cards = ps.local_devices(dev)
+    check(len(cards) >= 2, f"--split-trial needs >= 2 cards ({cards})")
+    ref, paths, recs, genome, _short = write_inputs()
     runs = {}
-    for key, flags, kernels in (
-            ("score", [], ("lis_chain", "band_score", "full_score")),
-            ("c", ["-c"], ("lis_chain", "band_parents", "walk_parents"))):
+    for key, flags, cfg, kernels in (
+            ("score", [], MapperConfig(),
+             ("lis_chain", "band_score", "full_score")),
+            ("c", ["-c"], MapperConfig(output_cigar=True),
+             ("lis_chain", "band_parents", "walk_parents"))):
         one, one_lines = run_cli(ref, paths[N_READS], recs,
                                  flags + ["--devices", "1"],
                                  f"one_{key}.paf", kernels)
+        check(set(one["launches_by_device"]) == {0},
+              f"{flags} --devices 1 launched on {one['launches_by_device']}")
         torch.cuda.empty_cache()
-        peak = []
-        for i in range(n_dev):
-            torch.cuda.reset_peak_memory_stats(i)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
         split, lines = run_cli(ref, paths[N_READS], recs,
                                flags + ["--devices", "0"],
                                f"split_{key}.paf", kernels)
-        for i in range(shards.size):
-            peak.append(torch.cuda.max_memory_allocated(i))
-        check(lines == one_lines, f"{flags}: the split PAF differs")
+        peak = [torch.cuda.max_memory_allocated(d) for d in cards]
+        check(lines == one_lines, f"{flags}: the --devices 0 PAF differs")
         check(min(peak) > 1 << 30, f"{flags}: a card held no index copy "
               f"(peak bytes {peak})")
+        check(all(split["launches_by_device"].get(d.index, 0) >= 1
+                  for d in cards),
+              f"{flags} --devices 0: a card launched nothing "
+              f"({split['launches_by_device']})")
         torch.cuda.empty_cache()
-        runs[key] = {"one": one, "split": split, "peak_bytes": peak,
-                     "byte_identical": True}
-    return {"phase": "2m", "cards": n_dev, "split_over": shards.size,
-            "runs": runs}
+        mappers = {"one": Mapper([("ecoli_like", genome)], cfg,
+                                 devices=[dev]),
+                   "all": Mapper([("ecoli_like", genome)], cfg,
+                                 devices=cards)}
+        row = {"one_cli": one, "all_cli": split, "peak_bytes": peak,
+               "byte_identical": True}
+        for how, mapper in mappers.items():
+            mapper.device_index()
+            check(mapper.map_records(recs) == one_lines,
+                  f"{key} {how}: the fresh pass's PAF differs")
+        for how in ("one", "all", "all", "one", "one", "all"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines = mappers[how].map_records(recs)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            wall = time.perf_counter() - t0
+            check(lines == one_lines, f"{key} {how}: the PAF differs")
+            row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
+        for how, mapper in mappers.items():
+            check(mapper.counters.faults == 0,
+                  f"{key}: {mapper.counters.faults} batches of the {how}-"
+                  "card mapper raised")
+            row[f"{how}_mapper"] = mapper.counters.as_dict()
+        row["dealt"] = mappers["all"].devices.batches
+        row["all_over_one_median"] = (
+            statistics.median(row["all_reads_per_s"])
+            / statistics.median(row["one_reads_per_s"]))
+        runs[key] = row
+        del mappers
+        torch.cuda.empty_cache()
+    return {"phase": "2m", "cards": [str(d) for d in cards], "runs": runs}
 
 
 def longread_records():
@@ -1605,6 +1691,7 @@ def phase_longread(dev) -> dict:
         if launches is None:
             launches = got
         after = mapper.counters.as_dict()
+        check(after["faults"] == 0, f"50 kb {name}: a batch raised")
         runs.append({"run": name, "wall_s": wall,
                      "reads_per_s_map": len(recs) / wall,
                      "paf_lines": len(lines), "band_path_launches": paths,
@@ -1644,6 +1731,9 @@ def phase_repeat_and_roofline(dev) -> dict:
                                 "genome")
     for k in ("repeat_reads_per_s", "repeat_cigar_reads_per_s"):
         check(repeat[k] > 0, f"{k} is {repeat[k]}")
+    for k in ("repeat_counters", "repeat_warm_counters",
+              "repeat_cigar_counters"):
+        check(repeat[k]["faults"] == 0, f"{k}: a batch raised")
     torch.cuda.empty_cache()
     counters = reset_launches()
     sol = bench_torch.measure_sol(device=dev)
@@ -1825,6 +1915,7 @@ def profile_cell(cell: str, genome: str, recs, cfg) -> dict:
                     mapper.map_records(recs)
                 wall = time.perf_counter() - t0
             after = mapper.counters.as_dict()
+            check(after["faults"] == 0, f"profile {cell}: a batch raised")
             row = {"wall_s": wall, "reads_per_s": len(recs) / wall,
                    "realign_batches": after["realign_batches"]
                    - before["realign_batches"],

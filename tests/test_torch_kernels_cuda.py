@@ -696,38 +696,44 @@ def test_map_step_cigar_cuda_matches_cpu(dev, mode):
     np.testing.assert_array_equal(got.codes[:, ok], want.codes[:, ok])
 
 
-@pytest.mark.parametrize("kind", ["full", "band", "cigar"])
-def test_split_step_on_two_streams_matches_one(dev, kind):
-    """The fused step split over two streams of one card
-    (parallel/shard.py): each slice launches its own kernels from its
-    worker thread, and the gathered outputs equal the unsplit step's."""
-    from bioinfo1_tpu_torch.parallel import shard as ps
-    index, arr, lens = _map_problem()
-    didx = dm.device_index_from_host(index, dev)
-    devices = ps.make_devices([dev, dev])
-    idx = ps.replicate_index(didx, devices)
-    assert list(idx) == [dev]
-    kw = dict(k=13, w=5, mode=0, budget=1024, region_cap=4096,
-              band=0 if kind == "full" else 256)
-    step, split = ((dm.map_step_cigar, ps.sharded_map_step_cigar)
-                   if kind == "cigar" else
-                   (dm.map_step, ps.sharded_map_step))
-    want = step(torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev),
-                didx, 1, -1, -1, **kw).to_numpy()
-    chains = ch.lis_chain.launches
-    got = split(devices, arr, lens, idx, 1, -1, -1, **kw)
-    assert ch.lis_chain.launches - chains == 2
-    assert devices.slices_run == 2
-    parts = [(got.base, want.base)] if kind == "cigar" else [(got, want)]
-    if kind == "cigar":
-        parts.append((got, want))
-    for g, w in parts:
-        for f in dataclasses.fields(w):
-            if f.name != "base":
-                np.testing.assert_array_equal(getattr(g, f.name),
-                                              getattr(w, f.name),
-                                              err_msg=f.name)
-    assert parts[0][1].mapped.sum() > 12
+@pytest.mark.parametrize("cigar", [False, True], ids=["score", "c"])
+def test_dealt_batches_on_two_streams_match_one(dev, monkeypatch, cigar):
+    """Batches dealt to two streams of one card (parallel/shard.py), one
+    index copy: each batch launches its kernels from its worker thread on
+    its entry's stream, and the PAF and every counter but the timings
+    equal the one-entry mapper's, batch by batch."""
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    monkeypatch.setenv("BIOINFO1_BAND_CACHE", "0")
+    rng = np.random.default_rng(12)
+    genome = simulate.random_genome(60000, rng)
+    refs = [("g", genome.tobytes().decode("latin1"))]
+    seqs = [s for _, s in simulate.simulate_reads(
+        genome, rng.integers(300, 3000, 48), rng)]
+    cfg = MapperConfig(output_cigar=cigar)
+    runs = []
+    for devices in ([dev, dev], [dev]):
+        mapper = Mapper(refs, cfg, devices=devices)
+        build.launches_by_device.clear()
+        results = [mapper.map_batch(seqs[o:o + 16])
+                   for o in range(0, len(seqs), 16)]
+        assert build.launches_by_device.get(dev.index, 0) >= 3
+        runs.append((results, {k: v for k, v in
+                               mapper.counters.as_dict().items()
+                               if not k.startswith("t_")},
+                     mapper.devices.batches))
+    (got, got_counts, dealt), (want, want_counts, _) = runs
+    assert dealt == [2, 1]
+    assert got == want and got_counts == want_counts
+    assert got_counts["faults"] == 0 and got_counts["mapped"] >= 40
+    # In flight at once: the same lines as the one-entry run.
+    mapper = Mapper(refs, MapperConfig(output_cigar=cigar, batch_size=8),
+                    devices=[dev, dev])
+    recs = [(f"r{i}", s) for i, s in enumerate(seqs)]
+    lines = mapper.map_records(recs)
+    assert lines == Mapper(refs, cfg, devices=[dev]).map_records(recs)
+    assert min(mapper.devices.batches) >= 2
+    assert mapper.counters.faults == 0
 
 
 @pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],

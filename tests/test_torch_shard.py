@@ -1,31 +1,29 @@
-"""The port's data-parallel map step (bioinfo1_tpu_torch/parallel/shard.py)
-against the unsplit step and the JAX package.
+"""The port's data parallelism (bioinfo1_tpu_torch/parallel/shard.py): the
+mapper's batches dealt to the devices in turn, each against its device's
+index copy, held to the one-device mapper and the JAX package.
 
 * ``pow2_prefix`` against ``bioinfo1_tpu.parallel.shard.auto_mesh`` on the
   8 virtual JAX devices of tests/conftest.py, for caps 0-9.
-* The split over ``[cpu] * 2`` and ``[cpu] * 4`` (one worker thread per
-  entry) against ``dm.map_step`` (full and banded score) and
-  ``dm.map_step_cigar``: equal field for field, walk codes included.
-* A Mapper over ``[cpu] * 2`` against the JAX CLI, which runs an 8-device
-  mesh here: byte-identical PAF, score-only global and ``-c -a local``,
-  and ``MapperCounters`` equal to the unsplit port's.
+* ``DeviceSet``: the deal in turn (also from many threads at once), the
+  thread's current device, its refusals; ``replicate_index`` keeps one
+  copy per distinct device.
+* A Mapper over ``[cpu] * 2`` and ``[cpu] * 4`` against the JAX CLI, which
+  runs an 8-device mesh here: byte-identical PAF, score-only global and
+  ``-c -a local``, every entry dealt a batch; batch by batch, its results
+  and ``MapperCounters`` equal the one-device mapper's.
 * ``--devices 2`` on the CPU CLI (one device there) prints the JAX CLI's
   ``--devices 2`` output.
-* The split called from many threads at once (a short switch interval).
 """
 
-import dataclasses
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
-import numpy as np
 import pytest
 import torch
 
 from bioinfo1_tpu import cli as jcli
 from bioinfo1_tpu.parallel import shard as jshard
-from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch import cli as tcli
 from bioinfo1_tpu_torch.index import builder
 from bioinfo1_tpu_torch.io import fastx
@@ -37,7 +35,6 @@ from test_torch_cli import (_cpu, _one_native_library, _run,  # noqa: F401
 from test_torch_cli_cigar import cigar_inputs  # noqa: F401
 
 CPU = torch.device("cpu")
-K, W = 11, 5
 
 
 @pytest.mark.parametrize("cap", range(10))
@@ -47,119 +44,124 @@ def test_pow2_prefix_matches_auto_mesh(cap):
     assert ps.pow2_prefix(jax.local_device_count(), cap) == want
 
 
-@pytest.fixture(scope="module")
-def batch():
-    rng = np.random.default_rng(2024)
-    genome = simulate.random_genome(30000, rng)
-    gstr = genome.tobytes().decode("latin1")
-    index = builder.build_index(gstr, K, W, 0.0)
-    seqs = [s for _, s in simulate.simulate_reads(
-        genome, rng.integers(150, 480, 13), rng)]
-    # A 400-base deletion drifts off the band (a certificate miss), and a
-    # junk read maps nowhere.
-    s0 = int(rng.integers(0, 25000))
-    seqs.append(gstr[s0:s0 + 150] + gstr[s0 + 550:s0 + 850])
-    seqs.append(simulate.random_genome(300, rng).tobytes().decode("latin1"))
-    seqs.append(gstr[100:400])
-    arr = np.zeros((len(seqs), 512), np.uint8)
-    lens = np.zeros(len(seqs), np.int32)
-    for i, s in enumerate(seqs):
-        arr[i, :len(s)] = np.frombuffer(s.encode("latin1"), np.uint8)
-        lens[i] = len(s)
-    return dm.device_index_from_host(index, CPU), arr, lens
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4])
+def test_device_set_deals_in_turn(n_dev):
+    devices = ps.DeviceSet([CPU] * n_dev)
+    assert devices.distinct() == [CPU]
+    assert devices.streams == [None] * n_dev
+    for _ in range(2 * n_dev + 1):
+        with devices.batch() as d:
+            assert d == CPU and devices.current() == CPU
+    assert devices.batches == [3] + [2] * (n_dev - 1)
+    assert devices.current() == CPU
 
 
-def _assert_same(got, want, path=""):
-    for f in dataclasses.fields(want):
-        g, w = getattr(got, f.name), getattr(want, f.name)
-        if dataclasses.is_dataclass(w):
-            _assert_same(g, w, f"{path}{f.name}.")
-        else:
-            assert g.dtype == w.dtype and g.shape == w.shape, path + f.name
-            np.testing.assert_array_equal(g, w, err_msg=path + f.name)
+def test_device_set_from_many_threads():
+    """The mapper's batch threads take entries at once: every deal is
+    counted once and each thread sees its own entry's device."""
+    devices = ps.DeviceSet([CPU] * 4)
 
+    def one(_):
+        with devices.batch() as d:
+            return d == devices.current()
 
-@pytest.mark.parametrize("kind", ["full", "band", "cigar"])
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_sharded_step_matches_single(batch, n_dev, kind):
-    didx, arr, lens = batch
-    kw = dict(k=K, w=W, mode=0, budget=1024, region_cap=1024,
-              band=0 if kind == "full" else 256)
-    devices = ps.make_devices([CPU] * n_dev)
-    idx = ps.replicate_index(didx, devices)
-    assert list(idx) == [CPU] and idx[CPU] is didx
-    step, split = ((dm.map_step_cigar, ps.sharded_map_step_cigar)
-                   if kind == "cigar" else
-                   (dm.map_step, ps.sharded_map_step))
-    want = step(torch.from_numpy(arr), torch.from_numpy(lens), didx, 1, -1,
-                -1, **kw).to_numpy()
-    got = split(devices, arr, lens, idx, 1, -1, -1, **kw)
-    _assert_same(got, want)
-    assert devices.slices_run == n_dev
-    base = want.base if kind == "cigar" else want
-    assert base.mapped.sum() >= 12
-    if kind == "band":
-        assert base.inexact.any()
-
-
-def test_split_refuses_a_batch_it_cannot_divide(batch):
-    didx, arr, lens = batch
-    devices = ps.make_devices([CPU] * 3)
-    with pytest.raises(ValueError, match="do not split"):
-        ps.sharded_map_step(devices, arr, lens,
-                            ps.replicate_index(didx, devices), 1, -1, -1,
-                            k=K, w=W, mode=0)
-
-
-def test_split_from_many_threads():
-    """The mapper's batch threads call one split at once: every slice runs
-    once, each call gets its slices back in entry order, and the slice
-    count loses no update."""
-    devices = ps.make_devices([CPU] * 4)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         with ThreadPoolExecutor(16) as pool:
-            futs = [pool.submit(devices.map,
-                                lambda d, lo, hi, t=t: (t, d, lo, hi), 8)
-                    for t in range(200)]
-            outs = [f.result(timeout=120) for f in futs]
+            assert all(pool.map(one, range(800)))
     finally:
         sys.setswitchinterval(old)
-    for t, out in enumerate(outs):
-        assert out == [(t, CPU, 2 * i, 2 * i + 2) for i in range(4)]
-    assert devices.slices_run == 800
+    assert devices.batches == [200] * 4
+
+
+@pytest.mark.parametrize("devices", [[], [torch.device("cuda")]],
+                         ids=["empty", "no_card_index"])
+def test_device_set_refuses(devices):
+    with pytest.raises(ValueError, match="DeviceSet"):
+        ps.DeviceSet(devices)
+
+
+def test_replicate_index_keeps_one_copy_per_device():
+    index = builder.build_index("ACGTTGCAAGGCTTACCGATGCATGCAAGT" * 40, 11,
+                                5, 0.0)
+    didx = dm.device_index_from_host(index, CPU)
+    copies = ps.replicate_index(didx, ps.DeviceSet([CPU] * 3))
+    assert list(copies) == [CPU] and copies[CPU] is didx
 
 
 def _records(path):
     return list(fastx.parse_reads(path).records)
 
 
-@pytest.mark.parametrize("flags,cfg", [
-    ([], MapperConfig()),
-    (["-c", "-a", "local"], MapperConfig(align_type="local",
-                                         output_cigar=True)),
-], ids=["score", "c_local"])
-def test_split_mapper_matches_jax_cli(inputs, cigar_inputs, flags,  # noqa
-                                      cfg):
-    _, ref, fq = cigar_inputs if "-c" in flags else inputs[:3]
-    refs = fastx.parse_fasta_any(ref)
+def test_mapper_takes_device_or_devices(inputs):
+    refs = fastx.parse_fasta_any(inputs[1])
+    with pytest.raises(ValueError, match="not both"):
+        Mapper(refs, MapperConfig(), device=CPU, devices=[CPU, CPU])
+    # On the CPU cfg.devices resolves to the one device.
+    assert Mapper(refs, MapperConfig(devices=4),
+                  device=CPU).devices.devices == [CPU]
+
+
+_KINDS = {"score": ([], MapperConfig(batch_size=8)),
+          "c_local": (["-c", "-a", "local"],
+                      MapperConfig(align_type="local", output_cigar=True,
+                                   batch_size=8))}
+
+
+@pytest.fixture(scope="module")
+def jax_paf(inputs, cigar_inputs):  # noqa: F811
+    """The JAX CLI's PAF of each kind, with its reference and reads."""
+    out = {}
+    for kind, (flags, _cfg) in _KINDS.items():
+        _, ref, fq = cigar_inputs if "-c" in flags else inputs[:3]
+        rc, want, _ = _run(jcli.main, flags + [ref, fq])
+        assert rc == 0
+        out[kind] = (ref, fq, want)
+    return out
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("kind", list(_KINDS))
+def test_dealt_mapper_matches_jax_cli(jax_paf, kind, n_dev):
+    ref, fq, want = jax_paf[kind]
     recs = _records(fq)
-    split = Mapper(refs, cfg, devices=[CPU, CPU])
-    got = split.map_records(recs)
-    rc, want, _ = _run(jcli.main, flags + [ref, fq])
-    assert rc == 0
+    mapper = Mapper(fastx.parse_fasta_any(ref), _KINDS[kind][1],
+                    devices=[CPU] * n_dev)
+    got = mapper.map_records(recs)
     assert "".join(line + "\n" for line in got) == want
     assert len(got) >= len(recs) - 2
-    assert split._get_devices().slices_run >= 2
-    single = Mapper(refs, cfg, device=CPU)
-    assert single.map_records(recs) == got
+    assert min(mapper.devices.batches) >= 1
+    assert mapper.counters.faults == 0
 
-    def counts(m):
-        return {k: v for k, v in m.counters.as_dict().items()
-                if not k.startswith("t_")}
-    assert counts(split) == counts(single)
-    assert split.counters.realign_batches > 0
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+def test_dealt_batches_count_like_one_device(jax_paf, kind):
+    """Batch by batch (no batches in flight, so the bands each batch starts
+    from are the same in both runs): the results and every counter but the
+    timings equal the one-device mapper's."""
+    ref, fq, _ = jax_paf[kind]
+    # By length, as map_records batches them: few length buckets a batch.
+    seqs = sorted((s for _, s in _records(fq)), key=len)
+    refs = fastx.parse_fasta_any(ref)
+    cfg = _KINDS[kind][1]
+    runs = []
+    for mapper in (Mapper(refs, cfg, devices=[CPU, CPU]),
+                   Mapper(refs, cfg, device=CPU)):
+        # On a worker thread, as map_records runs its batches: torch's CPU
+        # ops on the main thread run ~10x slower beside other busy
+        # processes (its OpenMP team spins).
+        with ThreadPoolExecutor(1) as pool:
+            results = pool.submit(lambda m=mapper: [
+                m.map_batch(seqs[o:o + 8])
+                for o in range(0, len(seqs), 8)]).result()
+        runs.append((results, {k: v for k, v in
+                               mapper.counters.as_dict().items()
+                               if not k.startswith("t_")}))
+    (got, got_counts), (want, want_counts) = runs
+    assert got == want
+    assert got_counts == want_counts
+    assert got_counts["faults"] == 0 and got_counts["realign_batches"] > 0
 
 
 def test_cli_devices_2_matches_jax(inputs):

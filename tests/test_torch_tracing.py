@@ -4,8 +4,8 @@
   CLI's stages (``index_build``, ``index_upload``, ``map``) and the
   mapper's host scopes, worker threads included; its PAF bytes equal those
   of the same run without a trace.
-* A Mapper split over ``[cpu] * 2`` under the trace names the split's
-  scopes, one ``shard.step`` per slice.
+* A Mapper dealing its batches to ``[cpu] * 2`` under the trace: each
+  batch, whichever entry runs it, names one fused step's scopes.
 * ``host_split``'s inclusive and exclusive times on a hand-made trace.
 * ``StageTimers`` totals and counts still accumulate under the scopes.
 """
@@ -52,17 +52,19 @@ def test_cli_trace_names_stages_and_host_scopes(inputs, tmp_path):
 
 def test_split_mapper_trace_names_shards(inputs, tmp_path):
     _, ref, fq, _ = inputs
-    recs = list(fastx.parse_reads(fq).records)[:8]
-    mapper = Mapper(fastx.parse_fasta_any(ref), MapperConfig(),
+    recs = list(fastx.parse_reads(fq).records)
+    mapper = Mapper(fastx.parse_fasta_any(ref), MapperConfig(batch_size=8),
                     devices=[CPU, CPU])
     with tracing.device_trace(str(tmp_path), CPU):
         lines = mapper.map_records(recs)
-    assert len(lines) >= 6
+    assert len(lines) >= len(recs) - 2
     split = tracing.host_split(str(tmp_path / tracing.TRACE_FILE))
-    n = split["fused.split"]["calls"]
-    assert n >= 1 and "fused.upload" not in split
-    for name in ("shard.upload", "shard.step", "shard.fetch"):
-        assert split[name]["calls"] == 2 * n, name
+    assert split["map_batch"]["calls"] == sum(mapper.devices.batches)
+    assert min(mapper.devices.batches) >= 1
+    n = split["fused"]["calls"]
+    assert n >= split["map_batch"]["calls"]
+    for name in ("fused.upload", "fused.step", "fused.fetch"):
+        assert split[name]["calls"] == n, name
 
 
 def test_host_split_nesting(tmp_path):
