@@ -13,7 +13,11 @@ output depends on whether the library loaded.  A load therefore never gives
 up on a library that another process is still writing: the port's builds
 are serialised by a lock file beside the library, and a library that exists
 but does not load yet (the JAX package's loader builds it in place, without
-the lock) is retried for up to ``_LOAD_WAIT_S`` seconds.
+the lock) is retried for up to ``_LOAD_WAIT_S`` seconds.  The port itself
+never writes the library in place: it builds into a private tree beside it
+and renames the result into place, so another process's loader (the JAX
+package's gives up after one failed load) meets either no library or a
+whole one.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import ctypes
 import fcntl
 import os
 import subprocess
+import tempfile
 import time
 from typing import Optional, Tuple
 
@@ -85,7 +90,7 @@ def _build_and_load() -> ctypes.CDLL:
     with open(_LIB_PATH + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(_LIB_PATH) and os.path.exists(_BUILD_SCRIPT):
-            subprocess.run([_BUILD_SCRIPT], check=True, capture_output=True)
+            _build_beside()
     deadline = time.monotonic() + _LOAD_WAIT_S
     while True:
         try:
@@ -94,6 +99,24 @@ def _build_and_load() -> ctypes.CDLL:
             if not os.path.exists(_LIB_PATH) or time.monotonic() > deadline:
                 raise
             time.sleep(0.5)
+
+
+def _build_beside() -> None:
+    """Run the build script on a private tree beside the library - the
+    script's own flags and sources (``native/``, linked in), its output in
+    that tree's ``build/`` - then rename the result into place (the same
+    file system, so the rename is atomic)."""
+    sources = os.path.join(os.path.dirname(os.path.dirname(_BUILD_SCRIPT)),
+                           "native")
+    with tempfile.TemporaryDirectory(prefix=".native-build-",
+                                     dir=os.path.dirname(_LIB_PATH)) as tree:
+        os.mkdir(os.path.join(tree, "tools"))
+        script = os.path.join(tree, "tools", os.path.basename(_BUILD_SCRIPT))
+        os.symlink(_BUILD_SCRIPT, script)
+        os.symlink(sources, os.path.join(tree, "native"))
+        subprocess.run([script], check=True, capture_output=True)
+        os.replace(os.path.join(tree, "build", os.path.basename(_LIB_PATH)),
+                   _LIB_PATH)
 
 
 #: Per-strand histogram orderings: (iter_hash, iter_count, sorted_hash).

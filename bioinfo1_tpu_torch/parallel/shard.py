@@ -1,7 +1,7 @@
 """Data parallelism over the local devices: one process, the index
-replicated on every device (the one-process part of
-bioinfo1_tpu/parallel/shard.py: ``make_mesh``, ``auto_mesh``,
-``replicate_index``).
+replicated on every device or split by hash range over them (the
+one-process part of bioinfo1_tpu/parallel/shard.py: ``make_mesh``,
+``auto_mesh``, ``replicate_index``, ``shard_index``).
 
 The JAX package splits each padded batch over a 1-D mesh under
 ``shard_map``: one compiled program, so the split costs no host dispatch.
@@ -13,6 +13,11 @@ turn, and each batch runs wholly on its entry's device against that
 device's index copy, with one dispatch, as on one device.  Every read's
 result depends on that read alone, so the output is the one-device run's
 byte for byte.
+
+With the index sharded (``shard_index``), entry d holds the lookup arrays
+of one hash range; a batch still runs wholly on its entry's device, and
+only its lookup goes out to the shards (ops/match.
+find_matches_combined_sharded).
 
 A device may repeat in the list: the CPU tests deal over ``[cpu] * N``,
 and on one card ``[cuda:0, cuda:0]`` runs two streams against one index
@@ -124,3 +129,25 @@ def replicate_index(index: dm.DeviceIndex, devices: DeviceSet,
         if d.type == "cuda":
             torch.cuda.synchronize(d)
     return out
+
+
+def shard_index(index, devices: DeviceSet) -> Dict[torch.device,
+                                                   dm.ShardedIndex]:
+    """Pack the host index hash-range-sharded, one shard per entry of the
+    set on that entry's device, with one lookup stream per card; returns
+    the view of each distinct device (its ``ref_bytes``), every shard
+    complete before any stream reads it (the counterpart of the JAX
+    package's ``shard_index``)."""
+    shards = dm.sharded_device_index_from_host(index, len(devices.devices),
+                                               devices.devices)
+    lookup = {d: torch.cuda.Stream(d) for d in devices.distinct()
+              if d.type == "cuda"}
+    streams = [lookup.get(d) for d in devices.devices]
+    served = [torch.zeros((), dtype=torch.int64, device=d)
+              for d in devices.devices]
+    for d in lookup:
+        torch.cuda.synchronize(d)
+    return {d: dm.ShardedIndex(
+        shards=shards, streams=streams, served=served,
+        ref_bytes=shards[devices.devices.index(d)].ref_bytes)
+        for d in devices.distinct()}

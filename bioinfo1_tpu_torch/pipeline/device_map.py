@@ -11,17 +11,19 @@ strand select -> region gather, then
     certificate, and the traceback walk (kernel K5); only the packed op
     codes leave the device.
 
-On CPU tensors every kernel wrapper takes its plain PyTorch version.  The
-stages carry ``record_function`` scopes (``step.minimize``, ``step.lookup``,
-``step.chain``, ``step.regions``, ``step.align``, ``step.walk``) that split
-the step's host time in a trace.
+The index is one device's copy (``DeviceIndex``) or the hash-range-sharded
+layout (``ShardedIndex``: each shard on its own device, the batch's lookup
+exchanged with them).  On CPU tensors every kernel wrapper takes its plain
+PyTorch version.  The stages carry ``record_function`` scopes
+(``step.minimize``, ``step.lookup``, ``step.chain``, ``step.regions``,
+``step.align``, ``step.walk``) that split the step's host time in a trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,6 +52,8 @@ class DeviceIndex:
 
     Hashes and counts are int64 holding the JAX package's uint32 values;
     ``bucket_off`` stays int32 (at k = 15 it has 2^30 + 1 entries, 4 GB).
+    ``shard_range`` > 0 marks one shard of the hash-range-sharded layout
+    (``sharded_device_index_from_host``).
     """
 
     key_hash: torch.Tensor     # (U,) int64 sorted, padded with 0xFFFFFFFF
@@ -62,6 +66,23 @@ class DeviceIndex:
     shift: int = 0
     bsearch_steps: int = 21
     cnt_shift: int = 16
+    shard_range: int = 0
+
+
+@dataclasses.dataclass
+class ShardedIndex:
+    """The hash-range-sharded index as a batch on one device sees it
+    (parallel/shard.shard_index): ``shards[d]``, on its own device, holds
+    the lookup arrays of hashes [d * S, (d + 1) * S) with S its
+    ``shard_range``; ``streams[d]`` is the lookup stream of that shard's
+    card (None on the CPU); ``served[d]``, on the shard's device, counts
+    the query slots it found.  ``ref_bytes`` is the copy on the batch's
+    device."""
+
+    shards: List[DeviceIndex]
+    streams: List[Optional[torch.cuda.Stream]]
+    served: List[torch.Tensor]
+    ref_bytes: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -224,6 +245,62 @@ def device_index_from_host(index, device: torch.device) -> DeviceIndex:
         cnt_shift=cnt_shift)
 
 
+def sharded_device_index_from_host(index, n_shards: int,
+                                   devices: Sequence[torch.device],
+                                   ) -> List[DeviceIndex]:
+    """Pack the index with its lookup arrays split by hash range, shard d
+    on ``devices[d]`` (port of bioinfo1_tpu/pipeline/device_map.py
+    ``sharded_device_index_from_host``, whose arrays carry a leading shard
+    axis instead).
+
+    Shard d holds hashes [d*S, (d+1)*S), S = 2^(2k) / n_shards: those rows
+    of the combined table, padded with 0xFFFFFFFF / 0 to the largest
+    shard, and a rebased direct-address directory over its range, (S + 1,)
+    int32.  Always direct-address: the directory (4 bytes per possible
+    hash) is what sharding divides.  ``ref_bytes`` is one copy per
+    distinct device.  Each directory is counted on its device, as
+    ``device_index_from_host`` does (JAX's host bincount would be a
+    2^(2k) / n_shards int64 array: 4.3 GB a shard at k = 15 over 2)."""
+    hash_bits = 2 * int(index.k)
+    if hash_bits > 30:
+        raise ValueError(f"sharded index needs 2*k <= 30 bits (k={index.k})")
+    if (1 << hash_bits) % n_shards:
+        raise ValueError(f"n_shards={n_shards} must divide the hash space")
+    ks, ps, cnt_fr, cnt_r2, cnt_shift = _host_combined_table(index)
+    S = (1 << hash_bits) // n_shards
+    bounds = np.searchsorted(ks, np.arange(n_shards + 1,
+                                           dtype=np.uint64) * S)
+    cap = max(int(np.diff(bounds).max()), 1)
+    ref = _ref_bytes(index)
+    ref_on: dict = {}
+    shards = []
+    for d in range(n_shards):
+        dev = torch.device(devices[d])
+        lo, hi = int(bounds[d]), int(bounds[d + 1])
+        n = hi - lo
+        kh = np.full(cap, 0xFFFFFFFF, np.int64)
+        kh[:n] = ks[lo:hi]
+        kp = np.zeros(cap, np.int32)
+        kp[:n] = ps[lo:hi]
+        cf = np.zeros(cap, np.int64)
+        cf[:n] = cnt_fr[lo:hi]
+        c2 = np.zeros(cap if cnt_shift == 0 else 1, np.int32)
+        if cnt_shift == 0:
+            c2[:n] = cnt_r2[lo:hi]
+        if dev not in ref_on:
+            ref_on[dev] = torch.from_numpy(ref).to(dev)
+        key_hash = torch.from_numpy(kh).to(dev)
+        shards.append(DeviceIndex(
+            key_hash=key_hash, key_pos=torch.from_numpy(kp).to(dev),
+            cnt_fr=torch.from_numpy(cf).to(dev),
+            cnt_r2=torch.from_numpy(c2).to(dev),
+            bucket_off=_bucket_directory(key_hash[:n] - d * S, n,
+                                         bb=S.bit_length() - 1, shift=0),
+            ref_bytes=ref_on[dev], ref_len=int(index.ref_len), shift=0,
+            bsearch_steps=0, cnt_shift=cnt_shift, shard_range=S))
+    return shards
+
+
 def device_index_from_numpy(arrays: Mapping[str, np.ndarray], shift: int,
                             bsearch_steps: int, cnt_shift: int,
                             device: torch.device) -> DeviceIndex:
@@ -267,11 +344,14 @@ def _extract_flat_windows(src: torch.Tensor, begin: torch.Tensor,
     return src_p[idx]
 
 
-def _map_core(reads, lens, index: DeviceIndex, *, k, w, budget, region_cap,
-              oob_end_windows):
+def _map_core(reads, lens, index: DeviceIndex | ShardedIndex, *, k, w,
+              budget, region_cap, oob_end_windows):
     """Front half of the fused step: minimize -> match -> chain -> strand
     select -> region extraction.  Returns the per-read coordinates and the
-    gathered (q_win, t_win, q_len, t_len) alignment regions."""
+    gathered (q_win, t_win, q_len, t_len) alignment regions.  A
+    ``ShardedIndex`` takes the sharded lookup (the JAX package's
+    ``shard_axis`` switch); the lookup's exchange with the shards stays
+    inside the ``step.lookup`` scope."""
     B, L = reads.shape
     with record_function("step.minimize"):
         mres = mz.minimize_batch(reads, lens, k, w,
@@ -285,10 +365,17 @@ def _map_core(reads, lens, index: DeviceIndex, *, k, w, budget, region_cap,
                        max(expect, budget // 2))
         q_hash, q_pos, q_keep, q_over = match_ops.compact_queries(
             mres.hashes, mres.pos, mres.dedup_keep, keep_cap)
-        got_f, got_r = match_ops.find_matches_combined(
-            q_hash, q_pos, q_keep, index.key_hash, index.key_pos,
-            index.cnt_fr, index.cnt_r2, index.bucket_off, index.shift,
-            index.bsearch_steps, budget, index.cnt_shift)
+        if isinstance(index, ShardedIndex):
+            first = index.shards[0]
+            got_f, got_r = match_ops.find_matches_combined_sharded(
+                q_hash, q_pos, q_keep, index.shards, first.shard_range,
+                budget, first.cnt_shift, streams=index.streams,
+                served=index.served)
+        else:
+            got_f, got_r = match_ops.find_matches_combined(
+                q_hash, q_pos, q_keep, index.key_hash, index.key_pos,
+                index.cnt_fr, index.cnt_r2, index.bucket_off, index.shift,
+                index.bsearch_steps, budget, index.cnt_shift)
     with record_function("step.chain"):
         # One chain call over both strands' rows (rows are independent).
         both = chain_ops.lis_chain(
@@ -328,7 +415,8 @@ def _map_core(reads, lens, index: DeviceIndex, *, k, w, budget, region_cap,
                 q_win, t_win, q_len, t_len, need)
 
 
-def map_step(reads: torch.Tensor, lens: torch.Tensor, index: DeviceIndex,
+def map_step(reads: torch.Tensor, lens: torch.Tensor,
+             index: DeviceIndex | ShardedIndex,
              match: int, mismatch: int, gap: int, *, k: int, w: int,
              mode: int, budget: int = 512, region_cap: int = 0,
              oob_end_windows: bool = False, band: int = 0,
@@ -393,7 +481,8 @@ class CigarOut:
 
 
 def map_step_cigar(reads: torch.Tensor, lens: torch.Tensor,
-                   index: DeviceIndex, match: int, mismatch: int, gap: int,
+                   index: DeviceIndex | ShardedIndex, match: int,
+                   mismatch: int, gap: int,
                    *, k: int, w: int, mode: int, budget: int = 512,
                    region_cap: int = 0, oob_end_windows: bool = False,
                    band: int = 256, dash_free: bool = False) -> CigarOut:

@@ -41,7 +41,12 @@ explicit list) the batches are dealt to the devices in turn
 (parallel/shard.py): each batch - fused step, realign pass and host path -
 runs wholly on its device against that device's index copy.  The JAX
 package splits every batch over its mesh instead; here that would repeat
-the step's host dispatch once per slice.
+the step's host dispatch once per slice.  A large index (or
+``BIOINFO1_INDEX_SHARD=1``; ``_index_shard_count``) is split by hash range
+over the devices instead of copied: a batch's lookup then goes out to
+every shard, and the rest of its step stays on its device.  The staged
+host path's per-strand tables stay one copy per device, as the JAX
+package's ``_map_bucket`` is not sharded either.
 
 The host steps carry ``record_function`` scopes that name them in a trace
 (utils/tracing.device_trace): ``map_batch``; ``fused`` with ``fused.pack``,
@@ -329,6 +334,33 @@ def _free_memory_bytes(device: torch.device) -> int:
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
+def _index_shard_count(k: int, n_entries: int, n_devices: int) -> int:
+    """How many hash-range shards the index of a mapper with ``n_devices``
+    entries uses (0 = replicate): the JAX package's ``Mapper.
+    _index_shard_count``, with the entry count in place of its mesh size.
+
+    One entry never shards.  BIOINFO1_INDEX_SHARD: 0/false/off replicates,
+    1/true/on shards, any other value (auto, the default) shards when the
+    replicated lookup structures' estimate - the JAX package's layout, 12
+    bytes an entry plus its direct directory - exceeds
+    BIOINFO1_INDEX_BUDGET bytes (6e9 by default).  Sharding needs 2k <= 30
+    and a shard count that divides the hash space."""
+    if n_devices <= 1:
+        return 0
+    mode = os.environ.get("BIOINFO1_INDEX_SHARD", "auto")
+    if mode in ("0", "false", "off"):
+        return 0
+    hash_bits = 2 * k
+    if hash_bits > 30 or (1 << hash_bits) % n_devices:
+        return 0
+    if mode in ("1", "true", "on"):
+        return n_devices
+    direct = n_entries >= (1 << 20)
+    est = n_entries * 12 + (4 * ((1 << hash_bits) + 1) if direct else 0)
+    budget = float(os.environ.get("BIOINFO1_INDEX_BUDGET", 6e9))
+    return n_devices if est > budget else 0
+
+
 class Mapper:
     """Reusable mapping engine bound to one reference index and its devices.
 
@@ -381,20 +413,28 @@ class Mapper:
         self._band_by_key: dict = {}     # (cap, for_cigar) -> band
         self._budget_boost: dict = {}    # cap -> pow-2 budget multiplier
         self._load_band_cache()
-        self._device_index: Optional[dict] = None   # device -> index
+        self._device_index: Optional[dict] = None   # device -> its view
         self._strand_tensors: dict = {}             # device -> strands
 
-    def device_index(self) -> dm.DeviceIndex:
-        """The index on the device of this thread's batch (the first
-        device outside a batch).  At first use it is packed and uploaded to
-        the first device and copied from there to the others (replicated;
-        the JAX package's hash-range-sharded layout is not ported)."""
+    def device_index(self) -> dm.DeviceIndex | dm.ShardedIndex:
+        """The index as the batch on this thread's device sees it (the
+        first device outside a batch), packed at first use: replicated, one
+        copy per device, uploaded to the first device and copied from there
+        to the others; or, when ``_index_shard_count`` says so, split by
+        hash range over the entries (``ps.shard_index``)."""
         # Locked: two first batches racing here would upload it twice.
         with self._counters_lock:
             if self._device_index is None:
-                self._device_index = ps.replicate_index(
-                    dm.device_index_from_host(self.index, self.device),
-                    self.devices)
+                n_entries = (len(self.index.fwd.hash_sorted)
+                             + len(self.index.rev.hash_sorted))
+                if _index_shard_count(self.cfg.k, n_entries,
+                                      len(self.devices.devices)):
+                    self._device_index = ps.shard_index(self.index,
+                                                        self.devices)
+                else:
+                    self._device_index = ps.replicate_index(
+                        dm.device_index_from_host(self.index, self.device),
+                        self.devices)
             return self._device_index[self.devices.current()]
 
     def _band_cache_path(self):

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
                            --chain-trial | --chain-profile | --full-trial |
-                           --split-trial]
+                           --split-trial | --shard-trial [--genome-mb N]]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -61,6 +61,16 @@ run):
      threads), both entries must be dealt batches and every pass's PAF
      must equal phase 2's and phase 2c's -c run byte for byte; reads/s of
      each pass beside the CLI run's.
+  2x. the hash-range-sharded index (BIOINFO1_INDEX_SHARD=1,
+     parallel/shard.shard_index) on Mapper(devices=[cuda:0, cuda:0]): two
+     shards, two batch streams, the card's lookup stream; phase 2's reads
+     in-process, score-only and then -c, beside the replicated two-entry
+     mapper: batch by batch their results and counters (but the timings)
+     must be equal; then four passes on adapted bands (sharded,
+     replicated, replicated, sharded), each PAF phase 2's or phase 2c's -c
+     run's byte for byte, phases 2 / 2c's kernels launched, no batch
+     raised, both shards served lookups; each shard's bytes, both indexes'
+     bytes, the card's peak memory, reads/s of each pass.
   2L. the main path at 50 kb: 16 ONT-profile reads of 50 kb from the
      bench's genome through Mapper.map_records in-process (score-only,
      fresh bands): as planned (their bands take the cluster path, which
@@ -110,7 +120,15 @@ run):
   hold an index copy and launch kernels; then a one-card and an all-card
   mapper in-process, a fresh pass each and six timed passes (one, all,
   all, one, one, all), every PAF the same; reads/s of each; and the run
-  ends there.  It is the one mode that uses more than one card.
+  ends there.  With --shard-trial phase 2y holds the sharded index over
+  every visible card to the replicated one: the CLI with --devices 0
+  under BIOINFO1_INDEX_SHARD=0 and =1, score-only and -c (byte-identical
+  PAFs, no batch raised, every card launched, each card's peak memory),
+  then in-process passes interleaved (rep, shard, shard, rep, rep, shard)
+  with their reads/s; --genome-mb N adds phase 2z, the CLI pair on an N
+  Mb genome, replicated against auto with the budget lowered to 1e9 so
+  that auto itself shards (each card's peak must drop by > 2 GB); the
+  run ends there.  These two trials are the modes that use more than one card.
 
   Every CLI run and in-process mapper of every phase must end with the
   mapper's ``faults`` at 0: a batch that raised (and was isolated by
@@ -1483,85 +1501,112 @@ def phase_staged(ref, paths, recs) -> tuple:
     return {"phase": "2s", "runs": runs, "launches": launches}, lines
 
 
+SCORE_AND_C = (("score", [], {}, ("lis_chain", "band_score", "full_score")),
+               ("c", ["-c"], {"output_cigar": True},
+                ("lis_chain", "band_parents", "walk_parents")))
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """The environment variables ``values`` set inside the block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def paired_passes(name: str, mappers: dict, recs, want, kernels) -> dict:
+    """Two in-process mappers of one card on the same reads, the reference
+    ``base`` and the ``test`` one (``mappers`` in that order).  First batch
+    by batch (chunks of 512 reads, no batch in flight beside another, so
+    both start each batch from the same bands): the results and every
+    counter but the timings must be equal.  Then four map_records passes on
+    the adapted bands, base, test, test, base: each PAF must equal ``want``
+    byte for byte.  The kernel counts are set to 0 just before the test
+    mapper's first pass and read just after it; each of ``kernels`` must
+    have launched.  No batch may raise (``faults``).  ``dealt``: the
+    batches each entry of the test mapper was dealt in the passes."""
+    from bioinfo1_tpu_torch.kernels import build
+    (base, _), (test, tested) = mappers.items()
+    seqs = [s for _, s in recs]
+    row = {}
+    batchwise = {}
+    for how, mapper in mappers.items():
+        mapper.device_index()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [mapper.map_batch(seqs[o:o + 512])
+                   for o in range(0, len(seqs), 512)]
+        torch.cuda.synchronize()
+        row[f"{how}_batchwise_reads_per_s"] = (
+            len(seqs) / (time.perf_counter() - t0))
+        batchwise[how] = (results, {
+            k: v for k, v in mapper.counters.as_dict().items()
+            if not k.startswith("t_")})
+    check(batchwise[base] == batchwise[test],
+          f"{name}: batch by batch, the {test} mapper's results or counters "
+          f"differ from the {base} mapper's")
+    dealt = list(tested.devices.batches)
+    for i, how in enumerate((base, test, test, base)):
+        if i == 1:
+            counters = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = mappers[how].map_records(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i == 1:
+            row["launches"] = {k: getattr(w, a)
+                               for k, (w, a) in counters.items()}
+        check(lines == want, f"{name} pass {i} ({how}): the PAF differs "
+              "from the CLI run's")
+        row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
+    for how, mapper in mappers.items():
+        check(mapper.counters.faults == 0, f"{name}: "
+              f"{mapper.counters.faults} batches of the {how} mapper raised")
+    for k in kernels:
+        check(row["launches"][k] >= 1, f"{name}: kernel {k} never launched")
+    row.update(dealt=[b - d for b, d in zip(tested.devices.batches, dealt)],
+               paf_lines=len(want), byte_identical=True,
+               mapper=tested.counters.as_dict(),
+               batchwise_counters=batchwise[test][1],
+               launches_by_device=dict(build.launches_by_device),
+               **{f"{test}_over_{base}_median": (
+                   statistics.median(row[f"{test}_reads_per_s"])
+                   / statistics.median(row[f"{base}_reads_per_s"]))})
+    return row
+
+
 def phase_split(genome: str, recs, cli: dict) -> dict:
     """Batches dealt to two streams of cuda:0 (parallel/shard.py) with one
     index copy, in-process on phase 2's reads, score-only and then -c,
-    beside a one-entry mapper.  First batch by batch (chunks of 512 reads,
-    no batch in flight beside another, so both mappers start each batch
-    from the same bands): the results and every counter but the timings
-    must be equal.  Then four map_records passes on the adapted bands, one
-    entry, two, two, one: each PAF must equal the CLI run's byte for byte.
-    The kernel counts are set to 0 just before the two-entry mapper's first
-    pass and read just after it.  No batch may raise (``faults``).  ``cli``
-    maps "score" and "c" to the CLI run of the same reads (phase 2, phase
-    2c's -c run): its PAF lines and its row."""
-    from bioinfo1_tpu_torch.kernels import build
+    beside a one-entry mapper (``paired_passes``; both entries must be
+    dealt batches, and the index must not be copied).  ``cli`` maps
+    "score" and "c" to the CLI run of the same reads (phase 2, phase 2c's
+    -c run): its PAF lines and its row."""
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
     dev = torch.device("cuda", 0)
-    seqs = [s for _, s in recs]
     runs = {}
-    for key, cfg, kernels in (
-            ("score", MapperConfig(),
-             ("lis_chain", "band_score", "full_score")),
-            ("c", MapperConfig(output_cigar=True),
-             ("lis_chain", "band_parents", "walk_parents"))):
+    for key, _flags, cfg, kernels in SCORE_AND_C:
         want, cli_row = cli[key]
-        row = {"reads": len(recs),
-               "cli_reads_per_s_map": cli_row["reads_per_s_map"]}
-        mappers = {"one": Mapper([("ecoli_like", genome)], cfg,
-                                 devices=[dev]),
-                   "two": Mapper([("ecoli_like", genome)], cfg,
-                                 devices=[dev, dev])}
-        batchwise = {}
-        for how, mapper in mappers.items():
-            mapper.device_index()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results = [mapper.map_batch(seqs[o:o + 512])
-                       for o in range(0, len(seqs), 512)]
-            torch.cuda.synchronize()
-            row[f"{how}_batchwise_reads_per_s"] = (
-                len(seqs) / (time.perf_counter() - t0))
-            batchwise[how] = (results, {
-                k: v for k, v in mapper.counters.as_dict().items()
-                if not k.startswith("t_")})
-        check(batchwise["one"] == batchwise["two"],
-              f"split {key}: batch by batch, the two-entry mapper's results "
-              "or counters differ from the one-entry mapper's")
-        two = mappers["two"]
-        dealt = list(two.devices.batches)
-        for i, how in enumerate(("one", "two", "two", "one")):
-            mapper = mappers[how]
-            if i == 1:
-                counters = reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lines = mapper.map_records(recs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if i == 1:
-                row["launches"] = {k: getattr(w, a)
-                                   for k, (w, a) in counters.items()}
-            check(lines == want, f"split {key} pass {i} ({how}): the PAF "
-                  "differs from the CLI run's")
-            row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
-        check(min(b - d for b, d in zip(two.devices.batches, dealt)) >= 1
-              and len(two._device_index) == 1,
+        mappers = {how: Mapper([("ecoli_like", genome)], MapperConfig(**cfg),
+                               devices=devices)
+                   for how, devices in (("one", [dev]), ("two", [dev, dev]))}
+        row = paired_passes(f"split {key}", mappers, recs, want, kernels)
+        check(min(row["dealt"]) >= 1
+              and len(mappers["two"]._device_index) == 1,
               f"split {key}: an entry was dealt no batch, or the index was "
               "copied")
-        for how, mapper in mappers.items():
-            check(mapper.counters.faults == 0,
-                  f"split {key}: {mapper.counters.faults} batches of the "
-                  f"{how}-entry mapper raised")
-        for k in kernels:
-            check(row["launches"][k] >= 1, f"split {key}: kernel {k} never "
-                  "launched")
-        row.update(dealt=two.devices.batches, paf_lines=len(want),
-                   byte_identical=True, mapper=two.counters.as_dict(),
-                   batchwise_counters=batchwise["two"][1],
-                   launches_by_device=dict(build.launches_by_device))
+        row.update(reads=len(recs),
+                   cli_reads_per_s_map=cli_row["reads_per_s_map"])
         runs[key] = row
-        del mappers, two, mapper, batchwise
+        del mappers
         torch.cuda.empty_cache()
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in runs["score"]["launches"]}
@@ -1569,14 +1614,128 @@ def phase_split(genome: str, recs, cli: dict) -> dict:
             "launches": launches}
 
 
+def shard_bytes(index) -> list:
+    """Bytes of each shard's lookup arrays (its ref_bytes apart)."""
+    return [sum(getattr(s, f).nbytes for f in
+                ("key_hash", "key_pos", "cnt_fr", "cnt_r2", "bucket_off"))
+            for s in index.shards]
+
+
+def phase_shard(genome: str, recs, cli: dict) -> dict:
+    """The hash-range-sharded index (parallel/shard.shard_index) on two
+    entries of cuda:0 - two shards, two batch streams, the card's lookup
+    stream - in-process on phase 2's reads, score-only and then -c, beside
+    a replicated two-entry mapper (phase 2x, ``paired_passes``: replicated
+    the base, sharded the test).  Both shards must have served lookups
+    (``ShardedIndex.served``: the query slots each found).  Each shard's
+    bytes, both mappers' index bytes and the card's peak memory (both
+    indexes resident) go in the row.  ``cli`` as for ``phase_split``."""
+    from bioinfo1_tpu_torch.pipeline import device_map as dm
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    dev = torch.device("cuda", 0)
+    runs = {}
+    for key, _flags, cfg, kernels in SCORE_AND_C:
+        want, cli_row = cli[key]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mappers, index_bytes = {}, {}
+        for how, shard in (("rep", "0"), ("shard", "1")):
+            mappers[how] = Mapper([("ecoli_like", genome)],
+                                  MapperConfig(**cfg), devices=[dev, dev])
+            before = torch.cuda.memory_allocated(dev)
+            with env_set(BIOINFO1_INDEX_SHARD=shard):
+                index = mappers[how].device_index()
+            torch.cuda.synchronize()
+            index_bytes[how] = torch.cuda.memory_allocated(dev) - before
+            check(isinstance(index, dm.ShardedIndex) == (how == "shard"),
+                  f"shard {key}: BIOINFO1_INDEX_SHARD={shard} gave a "
+                  f"{type(index).__name__}")
+        check(len(index.shards) == 2 and index.streams[0] is not None
+              and index.streams[0] is index.streams[1],
+              f"shard {key}: not two shards on one lookup stream")
+        row = paired_passes(f"shard {key}", mappers, recs, want, kernels)
+        served = [int(n) for n in index.served]
+        check(min(served) > 0, f"shard {key}: a shard served no lookup "
+              f"({served})")
+        row.update(reads=len(recs),
+                   cli_reads_per_s_map=cli_row["reads_per_s_map"],
+                   index_bytes=index_bytes, shard_bytes=shard_bytes(index),
+                   ref_bytes=index.ref_bytes.nbytes,
+                   shard_range=index.shards[0].shard_range, served=served,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        runs[key] = row
+        del mappers, index
+        torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["score"]["launches"]}
+    return {"phase": "2x", "devices": ["cuda:0", "cuda:0"], "runs": runs,
+            "launches": launches}
+
+
+def cli_runs(cards, ref, reads, recs, flags, key, kernels, variants):
+    """The CLI once per variant (name -> (extra flags, env vars)), each
+    card's peak memory measured; every PAF must equal the first's.
+    Returns ({variant: row}, the PAF lines)."""
+    out, first = {}, None
+    for how, (extra, env) in variants.items():
+        torch.cuda.empty_cache()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        with env_set(**env):
+            row, lines = run_cli(ref, reads, recs, flags + extra,
+                                 f"{how}_{key}.paf", kernels)
+        row["peak_bytes"] = [torch.cuda.max_memory_allocated(d)
+                             for d in cards]
+        row["env"] = env
+        first = first if first is not None else lines
+        check(lines == first, f"{flags + extra} {env}: the PAF differs "
+              "from the first variant's")
+        out[how] = row
+    return out, first
+
+
+def launched_on_every_card(row, cards, what: str) -> None:
+    check(all(row["launches_by_device"].get(d.index, 0) >= 1
+              for d in cards),
+          f"{what}: a card launched nothing ({row['launches_by_device']})")
+
+
+def interleaved(name: str, mappers: dict, recs, want, cards) -> dict:
+    """Two in-process mappers over the cards (``mappers``: base, then
+    test): a pass each on fresh bands (every card's first launches), then
+    timed passes on adapted bands in the order base, test, test, base,
+    base, test, each PAF ``want``; reads/s of each, no batch raised."""
+    (base, _), (test, _) = mappers.items()
+    row = {"byte_identical": True}
+    for how, mapper in mappers.items():
+        mapper.device_index()
+        check(mapper.map_records(recs) == want,
+              f"{name} {how}: the fresh pass's PAF differs")
+    for how in (base, test, test, base, base, test):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = mappers[how].map_records(recs)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        check(lines == want, f"{name} {how}: the PAF differs")
+        row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
+    for how, mapper in mappers.items():
+        check(mapper.counters.faults == 0, f"{name}: "
+              f"{mapper.counters.faults} batches of the {how} mapper raised")
+        row[f"{how}_mapper"] = mapper.counters.as_dict()
+    row[f"{test}_over_{base}_median"] = (
+        statistics.median(row[f"{test}_reads_per_s"])
+        / statistics.median(row[f"{base}_reads_per_s"]))
+    return row
+
+
 def phase_split_trial() -> dict:
     """Batches dealt to every visible card against one card (phase 2m), on
     phase 2's inputs, score-only and -c.  The CLI with --devices 1 and then
     --devices 0: byte-identical PAFs, no batch raised, kernels launched on
     card 0 alone and then on every card, each card holding its index copy.
-    Then in-process a one-card and an all-card mapper: a pass each on fresh
-    bands (every card's first launches), then timed passes on adapted bands
-    in the order one, all, all, one, one, all, each PAF the CLI's."""
+    Then in-process a one-card and an all-card mapper (``interleaved``)."""
     from bioinfo1_tpu_torch.parallel import shard as ps
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
     dev = torch.device("cuda", 0)
@@ -1584,63 +1743,116 @@ def phase_split_trial() -> dict:
     check(len(cards) >= 2, f"--split-trial needs >= 2 cards ({cards})")
     ref, paths, recs, genome, _short = write_inputs()
     runs = {}
-    for key, flags, cfg, kernels in (
-            ("score", [], MapperConfig(),
-             ("lis_chain", "band_score", "full_score")),
-            ("c", ["-c"], MapperConfig(output_cigar=True),
-             ("lis_chain", "band_parents", "walk_parents"))):
-        one, one_lines = run_cli(ref, paths[N_READS], recs,
-                                 flags + ["--devices", "1"],
-                                 f"one_{key}.paf", kernels)
-        check(set(one["launches_by_device"]) == {0},
-              f"{flags} --devices 1 launched on {one['launches_by_device']}")
-        torch.cuda.empty_cache()
-        for d in cards:
-            torch.cuda.reset_peak_memory_stats(d)
-        split, lines = run_cli(ref, paths[N_READS], recs,
-                               flags + ["--devices", "0"],
-                               f"split_{key}.paf", kernels)
-        peak = [torch.cuda.max_memory_allocated(d) for d in cards]
-        check(lines == one_lines, f"{flags}: the --devices 0 PAF differs")
+    for key, flags, cfg, kernels in SCORE_AND_C:
+        cli, want = cli_runs(cards, ref, paths[N_READS], recs, flags, key,
+                             kernels, {"one": (["--devices", "1"], {}),
+                                       "all": (["--devices", "0"], {})})
+        check(set(cli["one"]["launches_by_device"]) == {0},
+              f"{flags} --devices 1 launched on "
+              f"{cli['one']['launches_by_device']}")
+        launched_on_every_card(cli["all"], cards, f"{flags} --devices 0")
+        peak = cli["all"]["peak_bytes"]
         check(min(peak) > 1 << 30, f"{flags}: a card held no index copy "
               f"(peak bytes {peak})")
-        check(all(split["launches_by_device"].get(d.index, 0) >= 1
-                  for d in cards),
-              f"{flags} --devices 0: a card launched nothing "
-              f"({split['launches_by_device']})")
         torch.cuda.empty_cache()
-        mappers = {"one": Mapper([("ecoli_like", genome)], cfg,
-                                 devices=[dev]),
-                   "all": Mapper([("ecoli_like", genome)], cfg,
-                                 devices=cards)}
-        row = {"one_cli": one, "all_cli": split, "peak_bytes": peak,
-               "byte_identical": True}
-        for how, mapper in mappers.items():
-            mapper.device_index()
-            check(mapper.map_records(recs) == one_lines,
-                  f"{key} {how}: the fresh pass's PAF differs")
-        for how in ("one", "all", "all", "one", "one", "all"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lines = mappers[how].map_records(recs)
-            for d in cards:
-                torch.cuda.synchronize(d)
-            wall = time.perf_counter() - t0
-            check(lines == one_lines, f"{key} {how}: the PAF differs")
-            row.setdefault(f"{how}_reads_per_s", []).append(len(recs) / wall)
-        for how, mapper in mappers.items():
-            check(mapper.counters.faults == 0,
-                  f"{key}: {mapper.counters.faults} batches of the {how}-"
-                  "card mapper raised")
-            row[f"{how}_mapper"] = mapper.counters.as_dict()
-        row["dealt"] = mappers["all"].devices.batches
-        row["all_over_one_median"] = (
-            statistics.median(row["all_reads_per_s"])
-            / statistics.median(row["one_reads_per_s"]))
+        mappers = {how: Mapper([("ecoli_like", genome)], MapperConfig(**cfg),
+                               devices=devices)
+                   for how, devices in (("one", [dev]), ("all", cards))}
+        row = interleaved(key, mappers, recs, want, cards)
+        row.update(one_cli=cli["one"], all_cli=cli["all"], peak_bytes=peak,
+                   dealt=mappers["all"].devices.batches)
         runs[key] = row
         del mappers
         torch.cuda.empty_cache()
     return {"phase": "2m", "cards": [str(d) for d in cards], "runs": runs}
+
+
+def big_genome_inputs(genome_mb: int):
+    """An N Mb random genome and 2,048 ONT-profile reads of 2/4/8 kb from
+    it (six batches: every card of four is dealt one), written under WORK;
+    returns (ref, reads, recs)."""
+    rng = np.random.default_rng(GENOME_SEED + 2)
+    genome = sim.random_genome(genome_mb * 1_000_000, rng)
+    recs = sim.simulate_reads(genome, [(2000, 4000, 8000)[i % 3]
+                                       for i in range(N_READS)], rng)
+    ref = os.path.join(WORK, f"ref_{genome_mb}mb.fa")
+    g = genome.tobytes().decode("latin1")
+    with open(ref, "w") as fh:
+        fh.write(">big\n")
+        for i in range(0, len(g), 80):
+            fh.write(g[i:i + 80] + "\n")
+    reads = os.path.join(WORK, f"reads_{genome_mb}mb.fq")
+    with open(reads, "w") as fh:
+        for name, s in recs:
+            fh.write(f"@{name}\n{s}\n+\n{'5' * len(s)}\n")
+    return ref, reads, recs
+
+
+def phase_shard_trial() -> dict:
+    """The sharded index over every visible card against the replicated one
+    (phase 2y), on phase 2's inputs, score-only and -c.  The CLI with
+    --devices 0 under BIOINFO1_INDEX_SHARD=0 and then =1: byte-identical
+    PAFs, no batch raised, kernels launched on every card, each card's
+    peak memory.  Then in-process a replicated and a sharded all-card
+    mapper (``interleaved``); the query slots each shard served."""
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    from bioinfo1_tpu_torch.pipeline import device_map as dm
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    cards = ps.local_devices(torch.device("cuda", 0))
+    check(len(cards) >= 2, f"--shard-trial needs >= 2 cards ({cards})")
+    ref, paths, recs, genome, _short = write_inputs()
+    runs = {}
+    for key, flags, cfg, kernels in SCORE_AND_C:
+        cli, want = cli_runs(
+            cards, ref, paths[N_READS], recs, flags, key, kernels,
+            {how: (["--devices", "0"], {"BIOINFO1_INDEX_SHARD": shard})
+             for how, shard in (("rep", "0"), ("shard", "1"))})
+        for how in cli:
+            launched_on_every_card(cli[how], cards, f"{flags} {how}")
+        torch.cuda.empty_cache()
+        mappers = {}
+        for how, shard in (("rep", "0"), ("shard", "1")):
+            mappers[how] = Mapper([("ecoli_like", genome)],
+                                  MapperConfig(**cfg), devices=cards)
+            with env_set(BIOINFO1_INDEX_SHARD=shard):
+                mappers[how].device_index()
+        index = mappers["shard"].device_index()
+        check(isinstance(index, dm.ShardedIndex)
+              and len(index.shards) == len(cards), f"{key}: not sharded")
+        row = interleaved(key, mappers, recs, want, cards)
+        served = [int(n) for n in index.served]
+        check(min(served) > 0, f"{key}: a shard served no lookup {served}")
+        row.update(cli=cli, shard_bytes=shard_bytes(index), served=served)
+        runs[key] = row
+        del mappers, index
+        torch.cuda.empty_cache()
+    return {"phase": "2y", "cards": [str(d) for d in cards], "runs": runs}
+
+
+def phase_shard_big(genome_mb: int) -> dict:
+    """--shard-trial --genome-mb N (phase 2z): the CLI with --devices 0
+    (score-only) on an N Mb genome, replicated against
+    BIOINFO1_INDEX_SHARD=auto with BIOINFO1_INDEX_BUDGET=1e9, so that auto
+    itself shards: the PAFs byte-identical, every card launched, and each
+    card's peak memory must drop by more than 2 GB."""
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    cards = ps.local_devices(torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    ref, reads, recs = big_genome_inputs(genome_mb)
+    inputs_s = time.perf_counter() - t0
+    cli, _ = cli_runs(cards, ref, reads, recs, ["--devices", "0"], "big",
+                      ("lis_chain", "band_score"),
+                      {"rep": ([], {"BIOINFO1_INDEX_SHARD": "0"}),
+                       "auto": ([], {"BIOINFO1_INDEX_SHARD": "auto",
+                                     "BIOINFO1_INDEX_BUDGET": "1e9"})})
+    for how in cli:
+        launched_on_every_card(cli[how], cards, f"--genome-mb {how}")
+    rep, auto = cli["rep"]["peak_bytes"], cli["auto"]["peak_bytes"]
+    check(all(a + (2 << 30) < r for r, a in zip(rep, auto)),
+          f"--genome-mb {genome_mb}: auto did not shard (peak bytes a card "
+          f"{rep} replicated, {auto} under auto)")
+    return {"phase": "2z", "genome_mb": genome_mb, "inputs_s": inputs_s,
+            "cards": [str(d) for d in cards], "cli": cli}
 
 
 def longread_records():
@@ -1956,6 +2168,9 @@ def main() -> int:
     chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
     full_trial = "--full-trial" in sys.argv[1:]
     split_trial = "--split-trial" in sys.argv[1:]
+    shard_trial = "--shard-trial" in sys.argv[1:]
+    genome_mb = (int(sys.argv[sys.argv.index("--genome-mb") + 1])
+                 if "--genome-mb" in sys.argv[1:] else 0)
     if lpt_trial:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if chain_profile:
@@ -2008,6 +2223,11 @@ def main() -> int:
     if split_trial:
         emit(phase_split_trial())
         return 0
+    if shard_trial:
+        emit(phase_shard_trial())
+        if genome_mb:
+            emit(phase_shard_big(genome_mb))
+        return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})
     listing = build.sass()
@@ -2029,6 +2249,9 @@ def main() -> int:
     p2d = phase_split(genome, recs, {"score": (score_lines, p2),
                                      "c": (gpu_lines["c"], p2c["runs"][0])})
     emit(p2d)
+    p2x = phase_shard(genome, recs, {"score": (score_lines, p2),
+                                     "c": (gpu_lines["c"], p2c["runs"][0])})
+    emit(p2x)
     gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
     p2l = phase_longread(dev)
     emit(p2l)
@@ -2075,6 +2298,7 @@ def main() -> int:
                           if needed[name] else None,
                       "nocert_launches": p2g["launches"][name],
                       "split_launches": p2d["launches"][name],
+                      "shard_launches": p2x["launches"][name],
                       "staged_launches": p2s["launches"][name],
                       "repeat_launches": p2r["launches"][name]})
     emit({"kernels": table})

@@ -736,6 +736,99 @@ def test_dealt_batches_on_two_streams_match_one(dev, monkeypatch, cigar):
     assert mapper.counters.faults == 0
 
 
+def _lookup_queries(dev):
+    """The compacted minimizer queries of ``_map_problem``'s batch on
+    ``dev`` and its index."""
+    from bioinfo1_tpu_torch.ops import match as mo
+    from bioinfo1_tpu_torch.ops import minimizer as mz
+    index, arr, lens = _map_problem()
+    mres = mz.minimize_batch(torch.from_numpy(arr).to(dev),
+                             torch.from_numpy(lens).to(dev), 13, 5)
+    return index, mo.compact_queries(mres.hashes, mres.pos,
+                                     mres.dedup_keep, 1024)[:3]
+
+
+@pytest.mark.parametrize("budget", [64, 1024])
+def test_sharded_lookup_on_one_card_matches_replicated(dev, budget):
+    """Two shards of one card (parallel/shard.shard_index over [cuda:0,
+    cuda:0]), the lookup from a batch stream while the card's default
+    stream is busy: every Matches field equals the replicated lookup's,
+    and the lookup finished without waiting for the default stream (its
+    shards run on the card's lookup stream)."""
+    from bioinfo1_tpu_torch.ops import match as mo
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    index, (q_hash, q_pos, q_keep) = _lookup_queries(dev)
+    rep = dm.device_index_from_host(index, dev)
+    want = mo.find_matches_combined(
+        q_hash, q_pos, q_keep, rep.key_hash, rep.key_pos, rep.cnt_fr,
+        rep.cnt_r2, rep.bucket_off, rep.shift, rep.bsearch_steps, budget,
+        rep.cnt_shift)
+    shd = ps.shard_index(index, ps.DeviceSet([dev, dev]))[dev]
+    assert len(set(id(s) for s in shd.streams)) == 1
+
+    def lookup():
+        return mo.find_matches_combined_sharded(
+            q_hash, q_pos, q_keep, shd.shards, shd.shards[0].shard_range,
+            budget, shd.shards[0].cnt_shift, streams=shd.streams,
+            served=shd.served)
+
+    batch = torch.cuda.Stream(dev)
+    with torch.cuda.stream(batch):
+        lookup()                                # warm up
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(int(3e9))                 # ~1.5 s on the default stream
+    with torch.cuda.stream(batch):
+        got = lookup()
+        done = batch.record_event()
+    done.synchronize()
+    busy = not torch.cuda.default_stream(dev).query()
+    torch.cuda.synchronize(dev)
+    assert busy, "the lookup waited for the default stream"
+    for g, w_ in zip(got, want):
+        _same(g, w_)
+    assert all(int(s) > 0 for s in shd.served)
+    if budget == 64:
+        assert bool(want[0].overflow.any() or want[1].overflow.any())
+
+
+@pytest.mark.parametrize("cigar", [False, True], ids=["score", "c"])
+def test_sharded_index_on_two_streams_matches_replicated(dev, monkeypatch,
+                                                         cigar):
+    """BIOINFO1_INDEX_SHARD=1 on [cuda:0, cuda:0]: two shards, two batch
+    streams and the card's lookup stream; batch by batch the results and
+    every counter but the timings equal the replicated two-entry mapper's,
+    and with batches in flight the lines are the same."""
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    monkeypatch.setenv("BIOINFO1_BAND_CACHE", "0")
+    rng = np.random.default_rng(13)
+    genome = simulate.random_genome(60000, rng)
+    refs = [("g", genome.tobytes().decode("latin1"))]
+    seqs = [s for _, s in simulate.simulate_reads(
+        genome, rng.integers(300, 3000, 48), rng)]
+    recs = [(f"r{i}", s) for i, s in enumerate(seqs)]
+    cfg = MapperConfig(output_cigar=cigar)
+    runs = []
+    for shard in ("1", "0"):
+        monkeypatch.setenv("BIOINFO1_INDEX_SHARD", shard)
+        mapper = Mapper(refs, cfg, devices=[dev, dev])
+        assert isinstance(mapper.device_index(),
+                          dm.ShardedIndex) == (shard == "1")
+        results = [mapper.map_batch(seqs[o:o + 16])
+                   for o in range(0, len(seqs), 16)]
+        lines = Mapper(refs, MapperConfig(output_cigar=cigar, batch_size=8),
+                       devices=[dev, dev]).map_records(recs)
+        runs.append((results, {k: v for k, v in
+                               mapper.counters.as_dict().items()
+                               if not k.startswith("t_")}, lines,
+                     mapper.device_index()))
+    (got, got_counts, got_lines, shd), (want, want_counts, want_lines,
+                                        _) = runs
+    assert got == want and got_counts == want_counts
+    assert got_lines == want_lines and len(got_lines) >= 40
+    assert got_counts["faults"] == 0
+    assert all(int(s) > 0 for s in shd.served)
+
+
 @pytest.mark.parametrize("flags", [[], ["-c"], ["-c", "-a", "local"],
                                    ["-c", "-a", "semiGlobal"],
                                    ["-c", "-g", "1"],
