@@ -12,18 +12,25 @@ certificate exists (``-a global`` with ``-g >= 0``, ``-a local`` /
 ``semiGlobal`` with ``-g > 0``) and ``--bug-compat`` on a FASTA reads file
 (FASTA match nesting) run on the mapper's staged host path.
 
-Refused with rc 1 and a one-line message, never silently ignored: the
-multi-process variables ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
-/ ``JAX_PROCESS_ID``.
+Several processes: set ``JAX_COORDINATOR_ADDRESS`` (host:port of process
+0), ``JAX_NUM_PROCESSES`` (> 1) and ``JAX_PROCESS_ID`` and launch one
+process each, as for the JAX package (parallel/shard.py).  Each process
+parses and maps its contiguous read slice on its own devices (give each
+its cards with ``CUDA_VISIBLE_DEVICES``), and the PAF is merged to process
+0 in input order: to its stdout, or with ``-o FILE`` from the per-process
+checkpoints ``FILE.part<p>`` / ``FILE.progress.p<p>`` into ``FILE``, which
+``--resume`` continues from after a crash.  A peer that dies fails the run
+within seconds, naming the process and ``--resume``.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
 import sys
-from typing import List, Optional
+from typing import List, NoReturn, Optional
 
 from bioinfo1_tpu_torch.io import fastx
 from bioinfo1_tpu_torch.utils import stats as st
@@ -50,10 +57,6 @@ HELP_TEXT = (
     "\t  -s                       Basic statistic for first and second file\n"
 )
 
-_NOT_PORTED = "is not yet ported to bioinfo1_tpu_torch"
-_MULTI_PROCESS_VARS = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                       "JAX_PROCESS_ID")
-
 
 def _write_progress(path: str, completed: int, total, part_bytes) -> None:
     """Atomic checkpoint write: completed read count plus the output file's
@@ -63,6 +66,19 @@ def _write_progress(path: str, completed: int, total, part_bytes) -> None:
         json.dump({"completed_reads": completed, "total_reads": total,
                    "part_bytes": part_bytes}, fh)
     os.replace(tmp, path)
+
+
+def _peer_failure_exit(err, e) -> NoReturn:
+    """A peer process failed: report and exit at once, without atexit
+    hooks - no CUDA or gloo teardown may block against the dead peer and
+    hide the message."""
+    print(str(e), file=err)
+    try:
+        err.flush()
+        sys.stdout.flush()
+    except (OSError, ValueError):
+        pass
+    os._exit(1)
 
 
 def _resume_state(progress_path: str, part_path: str):
@@ -215,11 +231,17 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
         print(HELP_TEXT, end="", file=out)
         return 1
 
-    if any(os.environ.get(v) for v in _MULTI_PROCESS_VARS):
-        print("Error: a multi-process run ("
-              + " / ".join(_MULTI_PROCESS_VARS) + f") {_NOT_PORTED}",
-              file=err)
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    try:
+        ps.distributed_initialize_if_needed()
+    except ValueError as e:
+        print(f"Error: {e}", file=err)
         return 1
+    nproc, pid = ps.process_count(), ps.process_index()
+    if nproc > 1 and pid != 0:
+        # Only process 0 speaks on stdout (statistics and the merged PAF);
+        # the others' stdout is discarded.
+        out = io.StringIO()
 
     from bioinfo1_tpu_torch.utils.runtime import resolve_device
     try:
@@ -262,14 +284,28 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
              idx.rev.top_surviving),
             cfg.k), file=out)
 
+    # The liveness-aware merge channel opens before mapping: a peer that
+    # dies mid-run fails the whole job in seconds (naming the resumable
+    # part files) instead of stalling the merge for its timeout.
+    merge_sess = (ps.MergeSession(part_hint=out_path or "")
+                  if nproc > 1 else None)
+
     # Constant-memory streaming for file output without -s (which needs
-    # every record up front).
-    stream_mode = out_path is not None and not statistic
+    # every record up front), in one-process runs.
+    stream_mode = out_path is not None and not statistic and nproc == 1
     reads = None
+    total_reads = None
     try:
         if stream_mode:
             stream = fastx.stream_reads(file2)
             is_fastq = stream.is_fastq
+        elif nproc > 1 and not statistic:
+            # A count-only pass sizes the slices, then each process reads
+            # only its own contiguous slice of records.
+            _, total_reads = fastx.parse_reads_slice(file2, 0, 0)
+            lo, hi = ps.process_read_slice(total_reads)
+            reads, _ = fastx.parse_reads_slice(file2, lo, hi)
+            is_fastq = reads.is_fastq
         else:
             reads = fastx.parse_reads(file2)
             is_fastq = reads.is_fastq
@@ -297,6 +333,63 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
             print(json.dumps(mapper.counters.as_dict()), file=err)
 
     counters.start()
+    if nproc > 1:
+        if total_reads is not None:
+            local_records = reads.records       # already this one's slice
+        else:
+            lo, hi = ps.process_read_slice(len(reads.records))
+            local_records = reads.records[lo:hi]
+        start_at = 0
+        if out_path is None:
+            with timers.stage("map"):
+                local_lines = mapper.map_records(
+                    local_records, per_read_stats=per_read_stats)
+        else:
+            # Every process checkpoints its slice to a part file of its
+            # own, so --resume works per process and the merge reruns from
+            # the completed parts after a crash.
+            part_path = f"{out_path}.part{pid}"
+            progress_path = f"{out_path}.progress.p{pid}"
+            fmode = "w"
+            if (resume and os.path.exists(progress_path)
+                    and os.path.exists(part_path)):
+                start_at, fmode = _resume_state(progress_path, part_path)
+            try:
+                with timers.stage("map"), open(part_path, fmode) as pf:
+                    for done, lines in mapper.map_records_iter(
+                            local_records, per_read_stats=per_read_stats,
+                            start_at=start_at):
+                        for line in lines:
+                            print(line, file=pf)
+                        pf.flush()
+                        _write_progress(progress_path, done,
+                                        len(local_records), pf.tell())
+                        # Abort (resumably) within seconds of a peer dying
+                        # rather than mapping to completion first.
+                        merge_sess.check()
+            except RuntimeError as e:
+                _peer_failure_exit(err, e)
+            with open(part_path) as pf:
+                local_lines = pf.read().splitlines()
+        try:
+            with timers.stage("merge"):
+                merged = merge_sess.gather(local_lines)
+        except RuntimeError as e:
+            _peer_failure_exit(err, e)
+        if merged is not None:
+            if out_path is None:
+                for line in merged:
+                    print(line, file=out)
+            else:
+                with open(out_path, "w") as sink:
+                    for line in merged:
+                        print(line, file=sink)
+        counters.observe(len(local_records) - start_at,
+                         sum(len(s) for _, s in local_records[start_at:]),
+                         mapper.counters.dp_cells, mapper.counters.mapped)
+        report()
+        return 0
+
     if out_path is None:
         with timers.stage("map"):
             lines = mapper.map_records(reads.records,

@@ -7,7 +7,9 @@ the objects are linked into one shared library with a plain C interface,
 ``ctypes``: pointers are ``c_void_p`` (``tensor.data_ptr()``), the stream is
 ``torch.cuda.current_stream().cuda_stream``.  The build runs at first use
 and again whenever a source's hash changes (the hash is stamped beside the
-library).  Each C entry point returns ``cudaGetLastError()`` right after
+library), under an exclusive lock in the build directory, so that several
+processes on a fresh tree run ``nvcc`` once: the first builds, the others
+wait and find the stamp.  Each C entry point returns ``cudaGetLastError()`` right after
 its launch; ``launch`` raises if that is not 0.
 
 A failed build or launch raises.  There is no fallback: the plain PyTorch
@@ -18,6 +20,7 @@ versions are taken only for tensors that lie on the CPU, by the wrappers in
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -33,6 +36,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libbioinfo1_torch_kernels.so")
 NVCC_LOG = os.path.join(BUILD_DIR, "nvcc.log")
+BUILD_LOCK = os.path.join(BUILD_DIR, "build.lock")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -125,16 +129,35 @@ def sass() -> str:
     return proc.stdout
 
 
+def _stamp_matches(want: str) -> bool:
+    stamp = LIB_PATH + ".sha256"
+    if not (os.path.exists(LIB_PATH) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as fh:
+        return fh.read().strip() == want
+
+
 def ensure_built() -> float:
     """Build the library if it is missing or stale; seconds spent building
-    (0.0 when the stamped hash matched)."""
+    (0.0 when the stamped hash matched, also when another process built it
+    while this one waited for the lock)."""
     want = source_hash()
-    stamp = LIB_PATH + ".sha256"
-    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
-        with open(stamp) as fh:
-            if fh.read().strip() == want:
-                return 0.0
+    if _stamp_matches(want):
+        return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # flock is released when the file closes or its process dies, so a
+    # crashed build leaves no lock behind.
+    with open(BUILD_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stamp_matches(want):
+            return 0.0
+        return _build(want)
+
+
+def _build(want: str) -> float:
+    """nvcc every source at once, link, rename the library into place and
+    stamp it; seconds spent."""
+    stamp = LIB_PATH + ".sha256"
     tmp = f"{LIB_PATH}.tmp{os.getpid()}"
     nvcc = _nvcc()
     t0 = time.perf_counter()

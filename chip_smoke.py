@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
                            --chain-trial | --chain-profile | --full-trial |
-                           --split-trial | --shard-trial [--genome-mb N]]
+                           --split-trial | --shard-trial [--genome-mb N] |
+                           --process-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -71,6 +72,19 @@ run):
      run's byte for byte, phases 2 / 2c's kernels launched, no batch
      raised, both shards served lookups; each shard's bytes, both indexes'
      bytes, the card's peak memory, reads/s of each pass.
+  2p. two CLI processes on cuda:0 under the multi-process variables
+     (JAX_COORDINATOR_ADDRESS=127.0.0.1:<free port>, JAX_NUM_PROCESSES=2,
+     JAX_PROCESS_ID=p; each through this file's --process-worker, which
+     runs bioinfo1_tpu_torch.cli.main in-process with --profile and writes
+     its launches by kernel and by card, its mapper counters, its stages
+     and its peak memory as JSON) on phase 2's inputs: score-only to
+     stdout (process 0's stdout must be phase 2's PAF byte for byte,
+     process 1's empty), then -c -o (the merged file must be phase 2c's -c
+     PAF, the two part files must concatenate to it, both progress files
+     must read complete); K1, K2 and K3, then K1, K4 and K5 must launch in
+     each process, with faults 0; the pair's wall, each process's map and
+     merge seconds, map-stage reads/s and peak memory beside phase 2's
+     one-process run.
   2L. the main path at 50 kb: 16 ONT-profile reads of 50 kb from the
      bench's genome through Mapper.map_records in-process (score-only,
      fresh bands): as planned (their bands take the cluster path, which
@@ -128,7 +142,18 @@ run):
   with their reads/s; --genome-mb N adds phase 2z, the CLI pair on an N
   Mb genome, replicated against auto with the budget lowered to 1e9 so
   that auto itself shards (each card's peak must drop by > 2 GB); the
-  run ends there.  These two trials are the modes that use more than one card.
+  run ends there.  With --process-trial phase 2q runs the CLI as several
+  processes over every visible card, each PAF held to the one-card
+  one-process run of the same flags (in-process, --devices 1): (a) one
+  process a card (CUDA_VISIBLE_DEVICES=p), score-only to stdout and -c
+  -o; (b) with four cards or more, two processes of two cards each with
+  --devices 0, under BIOINFO1_INDEX_SHARD=0 and =1 (each process launching
+  on both of its cards); (c) the kill drill, on the reads of one length
+  bucket: process 1 held after its first checkpointed batch (--batch-size
+  32, one batch in flight), mid-slice, then SIGKILLed; process 0
+  must exit non-zero within 30 s naming process 1 and --resume, and every
+  process rerun with --resume must merge the one-process PAF; the run ends
+  there.  These three trials are the modes that use more than one card.
 
   Every CLI run and in-process mapper of every phase must end with the
   mapper's ``faults`` at 0: a batch that raised (and was isolated by
@@ -157,9 +182,12 @@ import dataclasses
 import io
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1373,10 +1401,12 @@ def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
     out = os.path.join(WORK, out_name)
     err = io.StringIO()
     counters = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(flags + [ref, reads, "-o", out, "--profile"], stderr=err)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
     by_device = dict(build.launches_by_device)
     sys.stderr.write(err.getvalue())
@@ -1402,7 +1432,7 @@ def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
             "index_upload_s": prof["stages_s"]["index_upload"],
             "mapped_frac_ge_2kb": frac, "paf_lines": len(lines),
             "launches": launches, "launches_by_device": by_device,
-            "stages_s": prof["stages_s"],
+            "peak_bytes": peak, "stages_s": prof["stages_s"],
             "mapper": prof["mapper"]}, lines
 
 
@@ -1855,6 +1885,308 @@ def phase_shard_big(genome_mb: int) -> dict:
             "cards": [str(d) for d in cards], "cli": cli}
 
 
+# ---- phase 2p / --process-trial: several CLI processes --------------------
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to the real stderr: a peer
+    failure ends the process by os._exit before anything is read back."""
+
+    def write(self, s):
+        sys.stderr.write(s)
+        return super().write(s)
+
+    def flush(self):
+        sys.stderr.flush()
+
+
+def process_worker(argv) -> int:
+    """``--process-worker OUT [--hold] -- CLI ARGS``: one process of a
+    multi-process run (the JAX_* variables are in its environment) through
+    cli.main in-process with --profile, the kernel counts set to 0 just
+    before; writes OUT, one JSON object: rc, process index, launches by
+    kernel and by device, the --profile stages and counters (the mapper's
+    ``faults``), each visible card's peak memory.  ``--hold`` holds
+    Mapper.map_records_iter after its first yield (a batch checkpointed,
+    heartbeats going on) until the process is killed."""
+    from bioinfo1_tpu_torch import cli
+    from bioinfo1_tpu_torch.kernels import build
+    cut = argv.index("--")
+    out_path = argv[argv.index("--process-worker") + 1]
+    if "--hold" in argv[:cut]:
+        from bioinfo1_tpu_torch.pipeline import mapper
+        real = mapper.Mapper.map_records_iter
+
+        def held(self, *args, **kwargs):
+            it = real(self, *args, **kwargs)
+            yield next(it)
+            threading.Event().wait()
+
+        mapper.Mapper.map_records_iter = held
+    counters = reset_launches()
+    err = _Tee()
+    rc = cli.main(argv[cut + 1:] + ["--profile"], stderr=err)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    row = {"rc": rc, "pid": int(os.environ["JAX_PROCESS_ID"]),
+           "launches": {k: getattr(w, a) for k, (w, a) in counters.items()},
+           "launches_by_device": dict(build.launches_by_device),
+           "peak_bytes": [torch.cuda.max_memory_allocated(d)
+                          for d in range(torch.cuda.device_count())]}
+    if rc == 0:
+        row.update(parse_profile(err.getvalue()))
+    with open(out_path, "w") as fh:
+        json.dump(row, fh)
+    return rc
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_processes(n: int, args, name: str, env_of, hold=()) -> list:
+    """n ``--process-worker`` processes of this file (fork + exec, never a
+    fork of this CUDA process) under one coordinator address and merge
+    port; ``env_of(p)`` adds variables (CUDA_VISIBLE_DEVICES), processes
+    in ``hold`` hold after their first batch.  Returns [(Popen, files
+    base)]; stdout and stderr go to the base's .out / .err."""
+    coord, merge = free_port(), free_port()
+    procs = []
+    for p in range(n):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
+                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(p),
+                   BIOINFO1_MERGE_PORT=str(merge), **env_of(p))
+        base = os.path.join(WORK, f"{name}.p{p}")
+        with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--process-worker", base + ".json",
+                 *(["--hold"] if p in hold else []), "--", *args],
+                env=env, cwd=REPO, stdout=out, stderr=err), base))
+    return procs
+
+
+def stop_processes(procs, timeout: float) -> None:
+    """Wait for every process up to ``timeout`` s in all; kill the rest."""
+    deadline = time.time() + timeout
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(0.1, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def read_text(path: str) -> str:
+    with open(path) as fh:
+        return fh.read()
+
+
+def multi_run(n: int, flags, ref, reads, name: str, want, kernels,
+              env_of, to_file: bool) -> dict:
+    """One multi-process CLI run of n processes: every process rc 0 with
+    ``faults`` 0 and each of ``kernels`` launched; the merged PAF (process
+    0's stdout, process 1..'s empty; or with ``to_file`` the -o file, its
+    part files concatenating to it and every progress file complete) must
+    equal ``want`` line for line.  The pair's wall, each process's
+    map-stage reads/s, map and merge seconds, launches and peak memory."""
+    out = os.path.join(WORK, f"{name}.paf")
+    args = flags + [ref, reads] + (["-o", out] if to_file else [])
+    t0 = time.perf_counter()
+    procs = start_processes(n, args, name, env_of)
+    stop_processes(procs, 900)
+    wall = time.perf_counter() - t0
+    rows = []
+    for proc, base in procs:
+        check(proc.returncode == 0, f"{name}: {base} rc {proc.returncode}: "
+              f"{read_text(base + '.err')[-3000:]}")
+        row = json.loads(read_text(base + ".json"))
+        check(row["mapper"]["faults"] == 0,
+              f"{name}: {row['mapper']['faults']} batches raised in {base}")
+        for k in kernels:
+            check(row["launches"][k] >= 1,
+                  f"{name}: kernel {k} never launched in {base}")
+        rows.append({
+            "pid": row["pid"], "reads": row["throughput"]["reads"],
+            "map_s": row["stages_s"]["map"],
+            "merge_s": row["stages_s"]["merge"],
+            # A resumed process may find its slice done: no reads, 0 s.
+            "reads_per_s_map": (row["throughput"]["reads"]
+                                / row["stages_s"]["map"]
+                                if row["throughput"]["reads"] else None),
+            "stages_s": row["stages_s"], "launches": row["launches"],
+            "launches_by_device": row["launches_by_device"],
+            "peak_bytes": row["peak_bytes"], "mapper": row["mapper"]})
+    if to_file:
+        merged = read_text(out)
+        check("".join(read_text(f"{out}.part{p}") for p in range(n))
+              == merged, f"{name}: the part files do not make the merge")
+        for p in range(n):
+            prog = json.loads(read_text(f"{out}.progress.p{p}"))
+            check(prog["completed_reads"] == prog["total_reads"],
+                  f"{name}: progress of process {p} incomplete: {prog}")
+    else:
+        merged = read_text(procs[0][1] + ".out")
+        for _, base in procs[1:]:
+            check(read_text(base + ".out") == "",
+                  f"{name}: {base} wrote to stdout")
+    check(merged.splitlines() == want,
+          f"{name}: the merged PAF differs from the one-process run's")
+    return {"processes": n, "flags": flags, "to_file": to_file,
+            "env": env_of(0), "wall_s": wall, "byte_identical": True,
+            "procs": rows}
+
+
+def summed_launches(runs) -> dict:
+    """Launches by kernel over every process of every run."""
+    total: dict = {}
+    for run in runs:
+        for row in run["procs"]:
+            for k, v in row["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_processes(ref, reads, cli: dict) -> dict:
+    """Two CLI processes on cuda:0 (phase 2p) under the multi-process
+    variables, on phase 2's inputs: score-only to stdout (process 0 prints
+    phase 2's PAF, process 1 nothing), then -c -o (the merged file is phase
+    2c's -c PAF); K1, K2 and K3, then K1, K4 and K5 launched in each
+    process.  ``cli`` as for ``phase_split``."""
+    torch.cuda.empty_cache()
+    runs = {}
+    for key, flags, _cfg, kernels in SCORE_AND_C:
+        want, cli_row = cli[key]
+        row = multi_run(2, flags, ref, reads, f"procs_{key}", want, kernels,
+                        lambda p: {"CUDA_VISIBLE_DEVICES": "0"},
+                        to_file=key == "c")
+        row.update(one_process_wall_s=cli_row["wall_s"],
+                   one_process_reads_per_s_map=cli_row["reads_per_s_map"],
+                   one_process_peak_bytes=cli_row["peak_bytes"])
+        runs[key] = row
+    return {"phase": "2p", "devices": ["cuda:0", "cuda:0"], "runs": runs,
+            "launches": summed_launches(runs.values())}
+
+
+def kill_drill(n: int, ref, recs) -> dict:
+    """n processes, one a card, -o, on the reads of phase 2's most common
+    length bucket; process 1 held after its first checkpointed batch
+    (which must leave it mid-slice), then SIGKILLed: process 0 must exit
+    non-zero within 30 s naming ``process 1`` and ``--resume``; then every
+    process rerun with --resume must merge the one-process PAF of the same
+    reads.  One bucket, batches of 32 and one batch in flight
+    (BIOINFO1_INFLIGHT_BYTES=1): a process checkpoints its first batch
+    when its second flushes, long before its slice ends."""
+    from bioinfo1_tpu_torch.pipeline.mapper import _bucket_cap
+    caps = [_bucket_cap(len(s)) for _, s in recs]
+    cap = max(set(caps), key=caps.count)
+    recs = [r for r, c in zip(recs, caps) if c == cap]
+    reads = os.path.join(WORK, "reads_kill.fq")
+    with open(reads, "w") as fh:
+        for name, s in recs:
+            fh.write(f"@{name}\n{s}\n+\n{'5' * len(s)}\n")
+    flags = ["--batch-size", "32"]
+    _, want = run_cli(ref, reads, recs, flags + ["--devices", "1"],
+                      "kill_one.paf", ())
+    out = os.path.join(WORK, "kill.paf")
+    for p in range(n):
+        for path in (f"{out}.part{p}", f"{out}.progress.p{p}"):
+            if os.path.exists(path):
+                os.remove(path)
+
+    def one_card(p):
+        return {"CUDA_VISIBLE_DEVICES": str(p),
+                "BIOINFO1_INFLIGHT_BYTES": "1"}
+
+    procs = start_processes(n, flags + [ref, reads, "-o", out], "kill",
+                            one_card, hold={1})
+    victim = procs[1][0]
+    prog = f"{out}.progress.p1"
+    try:
+        deadline = time.time() + 600
+        done = None
+        while done is None and time.time() < deadline \
+                and victim.poll() is None:
+            try:
+                done = json.loads(read_text(prog))
+            except (OSError, ValueError):
+                time.sleep(0.05)
+        check(victim.poll() is None and done is not None,
+              f"kill drill: process 1 ended or never checkpointed "
+              f"({victim.poll()}): {read_text(procs[1][1] + '.err')[-2000:]}")
+        check(0 < done["completed_reads"] < done["total_reads"],
+              f"kill drill: process 1 was not held mid-slice ({done})")
+        victim.send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs[0][0].wait(timeout=120)
+        detect_s = time.perf_counter() - t_kill
+    finally:
+        stop_processes(procs, 120)
+    err0 = read_text(procs[0][1] + ".err")
+    rc0 = procs[0][0].returncode
+    check(rc0 != 0 and detect_s < 30, f"kill drill: process 0 rc {rc0} "
+          f"after {detect_s:.1f} s")
+    check("process 1" in err0 and "--resume" in err0,
+          f"kill drill: process 0 said {err0[-2000:]!r}")
+    resumed = multi_run(n, flags + ["--resume"], ref, reads, "kill", want,
+                        (), one_card, to_file=True)
+    return {"reads": len(recs), "bucket": cap, "victim_progress": done,
+            "process0_rc": rc0,
+            "detect_s": detect_s,
+            "process0_message": [line for line in err0.splitlines()
+                                 if "--resume" in line],
+            "other_rcs": [proc.returncode for proc, _ in procs[2:]],
+            "resumed": resumed}
+
+
+def phase_process_trial() -> dict:
+    """Several processes over every visible card (phase 2q), on phase 2's
+    inputs; every PAF must equal the one-card one-process run of the same
+    flags (in-process, --devices 1, score-only and -c), no batch may
+    raise.  (a) one process a card (CUDA_VISIBLE_DEVICES=p), score-only to
+    stdout and -c -o; (b) with four cards or more, two processes of two
+    cards each with --devices 0, under BIOINFO1_INDEX_SHARD=0 and then =1
+    (score-only; each process must launch on both its cards); (c) the kill
+    drill (``kill_drill``)."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--process-trial needs >= 2 cards ({n})")
+    ref, paths, recs, _genome, _short = write_inputs()
+    reads = paths[N_READS]
+    res = {"phase": "2q", "cards": n, "one": {}, "per_card": {}, "pairs": {}}
+    want = {}
+    for key, flags, _cfg, kernels in SCORE_AND_C:
+        row, want[key] = run_cli(ref, reads, recs, flags + ["--devices", "1"],
+                                 f"trial_one_{key}.paf", kernels)
+        res["one"][key] = row
+    torch.cuda.empty_cache()
+    for key, flags, _cfg, kernels in SCORE_AND_C:
+        row = multi_run(n, flags, ref, reads, f"per_card_{key}", want[key],
+                        kernels, lambda p: {"CUDA_VISIBLE_DEVICES": str(p)},
+                        to_file=key == "c")
+        res["per_card"][key] = row
+    if n >= 4:
+        for shard in ("0", "1"):
+            row = multi_run(
+                2, ["--devices", "0"], ref, reads, f"pair_shard{shard}",
+                want["score"], SCORE_AND_C[0][3],
+                lambda p, s=shard: {"CUDA_VISIBLE_DEVICES":
+                                    f"{2 * p},{2 * p + 1}",
+                                    "BIOINFO1_INDEX_SHARD": s},
+                to_file=False)
+            for proc in row["procs"]:
+                check(set(proc["launches_by_device"]) == {"0", "1"},
+                      f"pair shard={shard}: process {proc['pid']} launched "
+                      f"on {proc['launches_by_device']}")
+            res["pairs"][f"shard{shard}"] = row
+    res["kill"] = kill_drill(n, ref, recs)
+    return res
+
+
 def longread_records():
     """16 ONT-profile reads of 50 kb from the bench's genome."""
     genome = bench_torch.make_data(bench_torch.FULL)[0]
@@ -2161,6 +2493,8 @@ def profile_cell(cell: str, genome: str, recs, cfg) -> dict:
 
 
 def main() -> int:
+    if "--process-worker" in sys.argv[1:]:
+        return process_worker(sys.argv[1:])
     profile_map = "--profile-map" in sys.argv[1:]
     lpt_trial = "--lpt-trial" in sys.argv[1:]
     walk_trial = "--walk-trial" in sys.argv[1:]
@@ -2169,6 +2503,7 @@ def main() -> int:
     full_trial = "--full-trial" in sys.argv[1:]
     split_trial = "--split-trial" in sys.argv[1:]
     shard_trial = "--shard-trial" in sys.argv[1:]
+    process_trial = "--process-trial" in sys.argv[1:]
     genome_mb = (int(sys.argv[sys.argv.index("--genome-mb") + 1])
                  if "--genome-mb" in sys.argv[1:] else 0)
     if lpt_trial:
@@ -2228,6 +2563,9 @@ def main() -> int:
         if genome_mb:
             emit(phase_shard_big(genome_mb))
         return 0
+    if process_trial:
+        emit(phase_process_trial())
+        return 0
     rows = phase_kernels(dev)
     emit({"phase": 1, "kernels": rows})
     listing = build.sass()
@@ -2252,6 +2590,10 @@ def main() -> int:
     p2x = phase_shard(genome, recs, {"score": (score_lines, p2),
                                      "c": (gpu_lines["c"], p2c["runs"][0])})
     emit(p2x)
+    p2p = phase_processes(ref, paths[N_READS],
+                          {"score": (score_lines, p2),
+                           "c": (gpu_lines["c"], p2c["runs"][0])})
+    emit(p2p)
     gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
     p2l = phase_longread(dev)
     emit(p2l)
@@ -2299,6 +2641,7 @@ def main() -> int:
                       "nocert_launches": p2g["launches"][name],
                       "split_launches": p2d["launches"][name],
                       "shard_launches": p2x["launches"][name],
+                      "process_launches": p2p["launches"][name],
                       "staged_launches": p2s["launches"][name],
                       "repeat_launches": p2r["launches"][name]})
     emit({"kernels": table})

@@ -6,9 +6,11 @@ with a 300-base deletion, so the realign pass runs) go through
 stdout, or the -o file, must be identical.  Covers FASTA and FASTQ reads,
 global mode, -s, and -o with --resume (test_torch_cli_modes.py covers the
 local and semiGlobal modes and --bug-compat, test_torch_cli_cigar*.py the
--c runs, test_torch_cli_staged*.py the staged host path).  What the port
-does not run yet must exit 1 with its message: a multi-process run;
-``--devices 2``, refused until the data-parallel step was ported, runs.
+-c runs, test_torch_cli_staged*.py the staged host path).  Two runs the
+port once refused with rc 1 now print the default run's output:
+``--devices 2`` (the data-parallel step) and a coordinator address with
+JAX_NUM_PROCESSES=1 (a one-process run under the multi-process variables;
+test_torch_multiprocess.py runs several processes).
 """
 
 import io
@@ -123,25 +125,22 @@ def test_cli_file_output_and_resume_match_jax(inputs):
 
 @pytest.mark.parametrize("flags,env,reads,needle", [
     (["--devices", "2"], {}, "fq", "--devices 2"),
-    ([], {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"}, "fq", "multi-process"),
+    ([], {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1",
+          "JAX_NUM_PROCESSES": "1"}, "fq", "multi-process"),
 ])
 def test_unported_flags_exit_1(inputs, monkeypatch, flags, env, reads,
                                needle):
-    """A multi-process run is refused with rc 1 and a one-line message.
-    ``--devices 2`` was refused the same way until the data-parallel step
-    was ported: now it runs, on the CPU over one device, and prints what
-    the default run prints."""
+    """Runs once refused with rc 1 and a one-line message, which now print
+    what the default run prints: ``--devices 2`` (on the CPU over one
+    device) since the data-parallel step was ported, and the multi-process
+    variables with JAX_NUM_PROCESSES=1 (one process) since multi-process
+    runs were.  The name is the refusal's."""
     _, ref, fq, fa = inputs
+    args = [ref, fq if reads == "fq" else fa]
+    want = _run(tcli.main, args)[1]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    args = [ref, fq if reads == "fq" else fa]
     rc, out, err = _run(tcli.main, flags + args)
-    if needle == "--devices 2":
-        assert (rc, err) == (0, "")
-        assert out == _run(tcli.main, args)[1]
-        assert out.count("\n") > 20
-        return
-    assert rc == 1
-    assert out == ""
-    assert needle in err and "not yet ported" in err
-    assert len(err.strip().splitlines()) == 1
+    assert (rc, err) == (0, ""), needle
+    assert out == want
+    assert out.count("\n") > 20
