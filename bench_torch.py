@@ -22,6 +22,16 @@ Measurements, in order:
   measure_sol         the roofline: K6's int32 rate, K2's fill rate, the
                       int32 operations a cell needs and the instructions
                       K2's SASS issues for it
+  measure_scaling     tools/measure_scaling.py's strong scaling: N = 1, 2,
+                      4, 8 processes under the multi-process variables,
+                      one card each while cards are left, each mapping its
+                      slice of 8,192 x 1 kb reads and merging to process 0
+                      (``extra.scaling``)
+  measure_sharded_genome
+                      tools/demo_sharded_big_genome.py: a 100 Mb genome
+                      whose index auto-shards at a 1e9-byte budget, against
+                      the replicated index on the same entries, byte for
+                      byte (``extra.sharded_genome``)
 
 Times are host-clock seconds around work that ends synchronised with the
 device, or CUDA events for single kernels.  A measurement that raises ends
@@ -29,8 +39,10 @@ the run with a non-zero exit.  There is no CPU fallback: without
 ``--platform cpu`` a missing card is an error.  ``--platform cpu --tiny``
 runs every measurement at toy sizes with the kernels' plain versions (K6's
 launch excepted); its numbers say nothing about the card and are tagged
-``"platform": "cpu"``.  The reference binary is not measured here, so
-every ``*_baseline`` entry is null.
+``"platform": "cpu"``.  The reference binary is not run here: the
+``*_baseline`` ratios divide by its single-thread rate pinned in
+BASELINE_MEASURED.json, as bench.py does, and the all-core rate is null.
+Scratch files go to build/bench_torch/.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ import dataclasses
 import gc
 import json
 import os
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -58,8 +72,12 @@ from bioinfo1_tpu_torch.pipeline.mapper import (Mapper, MapperConfig,
                                                 MapperCounters)
 from bioinfo1_tpu_torch.utils import simulate as sim
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "bench_torch")
 K, W, F = 15, 5, 0.001
 SEED = 20250817
+SCALING_SEED = 42                   # tools/measure_scaling.py's
+SHARDED_SEED = 20260822             # tools/demo_sharded_big_genome.py's
 BAND = 128                  # measure_ours: banded score width
 BASES = np.frombuffer(b"CATG", dtype=np.uint8)
 
@@ -95,6 +113,17 @@ class Sizes:
     fill_b: int = 512
     warm_passes: int = 5            # at most; stops when adaptation settles
     timed_passes: int = 3           # best of
+    scaling_genome: int = 200_000
+    scaling_reads: int = 8192
+    scaling_read_len: int = 1000
+    scaling_procs: tuple = (1, 2, 4, 8)
+    scaling_k: int = K
+    sharded_genome: int = 100_000_000
+    sharded_reads: int = 64
+    sharded_read_len: int = 4000
+    sharded_entries: int = 8        # dealt over the cards (two of one)
+    sharded_budget: str = "1e9"
+    sharded_k: int = K
     tiny: bool = False
 
 
@@ -108,7 +137,11 @@ TINY = Sizes(genome_len=40_000, read_len=256, n_reads=8, batch=4, budget=256,
                         ("tandem_loci", 3), ("tandem_unit", 30),
                         ("tandem_copies", 4)),
              probe_shape=(8, 128), probe_iters=(2, 5), fill_n=128,
-             fill_w=128, fill_b=4, warm_passes=1, timed_passes=1, tiny=True)
+             fill_w=128, fill_b=4, warm_passes=1, timed_passes=1,
+             scaling_genome=20_000, scaling_reads=48, scaling_read_len=300,
+             scaling_procs=(1, 2), scaling_k=11, sharded_genome=40_000,
+             sharded_reads=4, sharded_read_len=400, sharded_entries=2,
+             sharded_budget="1e3", sharded_k=11, tiny=True)
 
 
 def _sync(device: torch.device) -> None:
@@ -506,6 +539,343 @@ def measure_sol(sizes: Sizes = FULL,
     return out
 
 
+# ---- several processes (measure_scaling; chip_smoke.py's phases 2p, 2q) ---
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_processes(n: int, argv_of, base_of, env_of) -> list:
+    """n processes of this interpreter (fork + exec, never a fork of a CUDA
+    process) under one coordinator address and merge port, the
+    multi-process variables of the JAX package (JAX_COORDINATOR_ADDRESS=
+    127.0.0.1:<free port>, JAX_NUM_PROCESSES, JAX_PROCESS_ID) and
+    BIOINFO1_MERGE_PORT: process p runs ``argv_of(p)`` with ``env_of(p)``
+    added to its environment (CUDA_VISIBLE_DEVICES), its stdout and stderr
+    going to ``base_of(p)`` + ``.out`` / ``.err``.  Returns [(Popen,
+    base)]."""
+    coord, merge = free_port(), free_port()
+    procs = []
+    for p in range(n):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
+                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(p),
+                   BIOINFO1_MERGE_PORT=str(merge), **env_of(p))
+        base = base_of(p)
+        with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+            procs.append((subprocess.Popen(
+                [sys.executable, *argv_of(p)], env=env, cwd=REPO,
+                stdout=out, stderr=err), base))
+    return procs
+
+
+def stop_processes(procs, timeout: float) -> None:
+    """Wait for every process up to ``timeout`` s in all; kill the rest."""
+    deadline = time.time() + timeout
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(0.1, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as fh:
+        return fh.read()[-n:]
+
+
+def scaling_genome(n: int) -> str:
+    """tools/measure_scaling.py's genome: n bases from seed 42."""
+    rng = np.random.default_rng(SCALING_SEED)
+    return BASES[rng.integers(0, 4, n)].tobytes().decode("latin1")
+
+
+def write_scaling_reads(path: str, sizes: Sizes) -> None:
+    """tools/measure_scaling.py's reads file, draw for draw: the genome from
+    seed 42, then per read a start and read_len / 50 substitutions (2%)."""
+    rng = np.random.default_rng(SCALING_SEED)
+    genome = BASES[rng.integers(0, 4, sizes.scaling_genome)]
+    L = sizes.scaling_read_len
+    with open(path, "w") as fh:
+        for r in range(sizes.scaling_reads):
+            start = int(rng.integers(0, len(genome) - L))
+            seq = genome[start:start + L].copy()
+            for e in rng.integers(0, L, L // 50):
+                seq[e] = BASES[int(rng.integers(0, 4))]
+            fh.write(f">r{r}\n{seq.tobytes().decode('latin1')}\n")
+
+
+def scaling_worker(spec: dict) -> int:
+    """One process of ``measure_scaling`` (tools/scaling_worker.py's
+    product path): the sliced parse, a warm-up batch, then three timed
+    repetitions of Mapper.map_records plus the MergeSession gather to
+    process 0, each on its own merge port and after a barrier (a gloo group
+    at the coordinator address).  Process 0 writes the medians to
+    ``spec["out"]``."""
+    import torch.distributed as dist
+
+    from bioinfo1_tpu_torch.io import fastx
+    from bioinfo1_tpu_torch.parallel import shard as ps
+    from bioinfo1_tpu_torch.utils.runtime import resolve_device
+    p, n = ps.process_index(), ps.process_count()
+    device = resolve_device()
+    cfg = MapperConfig(batch_size=64, devices=1, k=spec["k"])
+    mapper = Mapper([("ref", scaling_genome(spec["genome_len"]))], cfg,
+                    device=device)
+    if n > 1:
+        dist.init_process_group(
+            "gloo", init_method="tcp://" + os.environ[
+                "JAX_COORDINATOR_ADDRESS"], rank=p, world_size=n)
+    t0 = time.perf_counter()
+    if n > 1:
+        _, total = fastx.parse_reads_slice(spec["reads"], 0, 0)
+        lo, hi = ps.process_read_slice(total)
+        reads, _ = fastx.parse_reads_slice(spec["reads"], lo, hi)
+    else:
+        reads = fastx.parse_reads(spec["reads"])
+        total = len(reads.records)
+    parse_s = time.perf_counter() - t0
+    local = reads.records
+    mapper.map_records(local[:cfg.batch_size])          # warm-up
+    map_ts, merge_ts, merged = [], [], None
+    for port in spec["merge_ports"]:
+        merge = None
+        if n > 1:
+            os.environ["BIOINFO1_MERGE_PORT"] = str(port)
+            merge = ps.MergeSession()
+            dist.barrier()
+        t0 = time.perf_counter()
+        lines = mapper.map_records(local)
+        _sync(device)
+        t1 = time.perf_counter()
+        merged = merge.gather(lines) if merge else list(lines)
+        merge_ts.append(time.perf_counter() - t1)
+        map_ts.append(t1 - t0)
+        if merge:
+            merge.close()
+    if n > 1:
+        dist.destroy_process_group()
+    if p == 0:
+        if len(merged) < total * 9 // 10:
+            raise RuntimeError(f"only {len(merged)} of {total} reads mapped")
+        map_s, merge_s = statistics.median(map_ts), statistics.median(merge_ts)
+        with open(spec["out"], "w") as fh:
+            json.dump({"nproc": n, "n_reads": total, "parse_s": parse_s,
+                       "map_only_s": map_s, "merge_s": merge_s,
+                       "map_s": map_s + merge_s,
+                       "reads_per_s": total / (map_s + merge_s),
+                       "mapped": len(merged), "map_only_runs_s": map_ts,
+                       "merge_runs_s": merge_ts}, fh)
+    return 0
+
+
+def measure_scaling(sizes: Sizes, device: torch.device) -> dict:
+    """Strong scaling of the multi-process product path (tools/
+    measure_scaling.py with the port's processes): for each N, N
+    ``scaling_worker`` processes, process p on card p mod cards (the cards
+    shared round-robin once N exceeds them: ``oversubscribed``; on the CPU
+    the cores).  efficiency(N) = T1 / (N * TN) over parse + map + merge,
+    and over the map alone."""
+    os.makedirs(WORK, exist_ok=True)
+    reads = os.path.join(WORK, "scaling_reads.fasta")
+    write_scaling_reads(reads, sizes)
+    on_card = device.type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    slots = cards if on_card else (os.cpu_count() or 1)
+
+    def env_of(p):
+        return ({"CUDA_VISIBLE_DEVICES": str(p % cards)} if on_card
+                else {"BIOINFO1_PLATFORM": "cpu"})
+    configs = {}
+    for n in sizes.scaling_procs:
+        out = os.path.join(WORK, f"scaling_{n}.json")
+        spec = {"out": out, "reads": reads, "genome_len":
+                sizes.scaling_genome, "k": sizes.scaling_k,
+                "merge_ports": [free_port() for _ in range(3)]}
+        procs = start_processes(
+            n, lambda p: [os.path.join(REPO, "bench_torch.py"),
+                          "--scaling-worker", json.dumps(spec)],
+            lambda p: os.path.join(WORK, f"scaling_{n}.p{p}"), env_of)
+        stop_processes(procs, 1200)
+        for proc, base in procs:
+            if proc.returncode != 0:
+                raise RuntimeError(f"scaling worker {base} rc "
+                                   f"{proc.returncode}: {_tail(base + '.err')}")
+        with open(out) as fh:
+            configs[n] = json.load(fh)
+        configs[n]["oversubscribed"] = n > slots
+
+    def total(r):
+        return r["parse_s"] + r["map_only_s"] + r["merge_s"]
+    first = configs[sizes.scaling_procs[0]]
+    return {
+        "workload": f"{sizes.scaling_reads} x {sizes.scaling_read_len} bp "
+                    f"reads at 2% substitutions against a "
+                    f"{sizes.scaling_genome} bp random genome (seed 42), "
+                    f"k={sizes.scaling_k} w={W} f={F}, batch 64, product "
+                    "path (sliced parse + Mapper + MergeSession gather)",
+        "method": "strong scaling, one process per host, process p on card "
+                  "p mod cards; eff(N) = T1/(N*TN); oversubscribed = more "
+                  "processes than cards (on the CPU: cores)",
+        "cards": cards, "platform": device.type,
+        "device": torch.cuda.get_device_name(0) if on_card else "cpu",
+        "nvidia_smi": nvidia_smi("name,power.limit") if on_card else None,
+        "configs": {str(n): r for n, r in configs.items()},
+        "efficiency": {str(n): total(first) / (n * total(r))
+                       for n, r in configs.items()},
+        "efficiency_map_only": {
+            str(n): first["map_only_s"] / (n * r["map_only_s"])
+            for n, r in configs.items()}}
+
+
+def sharded_genome_workload(sizes: Sizes):
+    """tools/demo_sharded_big_genome.py's genome (seed 20260822) and reads
+    (``sharded_reads`` of ``sharded_read_len`` at 2% substitutions), draw
+    for draw."""
+    rng = np.random.default_rng(SHARDED_SEED)
+    genome = BASES[rng.integers(0, 4, sizes.sharded_genome)]
+    records = _point_error_reads(
+        genome, [sizes.sharded_read_len] * sizes.sharded_reads, rng)
+    return genome.tobytes().decode("latin1"), records
+
+
+LOOKUP_FIELDS = ("key_hash", "key_pos", "cnt_fr", "cnt_r2", "bucket_off")
+
+
+def lookup_bytes(didx: dm.DeviceIndex) -> int:
+    """Bytes of one index copy's or shard's lookup arrays (its reference
+    bytes apart, which every entry holds either way)."""
+    return sum(getattr(didx, f).nbytes for f in LOOKUP_FIELDS)
+
+
+def measure_sharded_genome(sizes: Sizes, device: torch.device) -> dict:
+    """The big-genome sharded index (tools/demo_sharded_big_genome.py):
+    ``sharded_entries`` entries dealt over the local cards in turn (two of
+    ``cuda:0`` on a one-card host; two of the CPU in a CPU run), the index
+    under BIOINFO1_INDEX_SHARD=auto with BIOINFO1_INDEX_BUDGET lowered so
+    that ``mapper._index_shard_count`` itself shards, then the same mapper
+    (the same host index, fresh bands) with its index placed replicated
+    under BIOINFO1_INDEX_SHARD=0: both PAFs must be byte-identical.  Lookup
+    bytes per entry and per card, the cards' peak memory, build and map
+    seconds."""
+    from bioinfo1_tpu_torch.pipeline import mapper as mp
+    on_card = device.type == "cuda"
+    if on_card and torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        entries = [cards[i % len(cards)]
+                   for i in range(sizes.sharded_entries)]
+    else:
+        entries = [device] * 2
+    genome, records = sharded_genome_workload(sizes)
+    cfg = MapperConfig(k=sizes.sharded_k)
+    saved = {k: os.environ.get(k)
+             for k in ("BIOINFO1_INDEX_SHARD", "BIOINFO1_INDEX_BUDGET")}
+
+    def peaks():
+        return ({str(d): torch.cuda.max_memory_allocated(d)
+                 for d in dict.fromkeys(entries)} if on_card else None)
+
+    def passes():
+        if on_card:
+            for d in dict.fromkeys(entries):
+                torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        mapper.device_index()
+        for d in dict.fromkeys(entries):
+            _sync(d)
+        t_place = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = mapper.map_records(records)
+        for d in dict.fromkeys(entries):
+            _sync(d)
+        return lines, t_place, time.perf_counter() - t0, peaks()
+
+    try:
+        os.environ["BIOINFO1_INDEX_SHARD"] = "auto"
+        os.environ["BIOINFO1_INDEX_BUDGET"] = sizes.sharded_budget
+        t0 = time.perf_counter()
+        mapper = Mapper([("ref", genome)], cfg, devices=entries)
+        t_build = time.perf_counter() - t0
+        n_entries = (len(mapper.index.fwd.hash_sorted)
+                     + len(mapper.index.rev.hash_sorted))
+        engaged = mp._index_shard_count(cfg.k, n_entries, len(entries))
+        if engaged != len(entries):
+            raise RuntimeError(f"auto-sharding did not engage: "
+                               f"{engaged} shards for {len(entries)} entries")
+        sharded, t_place_s, t_sharded, peak_s = passes()
+        index = mapper.device_index()
+        if not isinstance(index, dm.ShardedIndex):
+            raise RuntimeError("the index was not placed sharded")
+        shard_b = [lookup_bytes(s) for s in index.shards]
+        del index
+        mapper._device_index = None         # the same host index, replicated
+        mapper._band_by_key.clear()
+        mapper._budget_boost.clear()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        os.environ["BIOINFO1_INDEX_SHARD"] = "0"
+        replicated, t_place_r, t_repl, peak_r = passes()
+        copies = mapper._device_index
+        rep_b = lookup_bytes(next(iter(copies.values())))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    identical = sharded == replicated
+    if not identical:
+        raise RuntimeError("the sharded index's PAF differs from the "
+                           "replicated index's")
+    del mapper, copies
+    gc.collect()
+    by_card: dict = {}
+    for d, b in zip(entries, shard_b):
+        by_card[str(d)] = by_card.get(str(d), 0) + b
+    if on_card:
+        torch.cuda.empty_cache()
+    return {
+        "genome_mb": sizes.sharded_genome / 1e6, "n_reads": len(records),
+        "read_len": sizes.sharded_read_len, "k": cfg.k,
+        "budget": sizes.sharded_budget,
+        "entries": [str(d) for d in entries],
+        "n_index_entries": n_entries,
+        "auto_shards_engaged": engaged,
+        "per_device_lookup_bytes_replicated": rep_b,
+        "per_device_lookup_bytes_sharded": max(shard_b),
+        "per_entry_lookup_bytes_sharded": shard_b,
+        "per_card_lookup_bytes_replicated": {
+            str(d): rep_b for d in dict.fromkeys(entries)},
+        "per_card_lookup_bytes_sharded": by_card,
+        "shard_reduction_x": rep_b / max(shard_b),
+        "card_reduction_x": rep_b / max(by_card.values()),
+        "peak_bytes_sharded": peak_s, "peak_bytes_replicated": peak_r,
+        "mapped_sharded": len(sharded),
+        "output_identical_to_replicated": identical,
+        "t_index_build_s": t_build,
+        "t_place_sharded_s": t_place_s, "t_place_replicated_s": t_place_r,
+        "t_map_sharded_s": t_sharded, "t_map_replicated_s": t_repl,
+        "platform": device.type,
+        "device": torch.cuda.get_device_name(0) if on_card else "cpu",
+        "nvidia_smi": nvidia_smi("name,power.limit") if on_card else None}
+
+
+def pinned_baseline() -> dict:
+    """The reference C++ mapper's single-thread reads/s on 2,048 x 4 kb
+    reads, pinned in BASELINE_MEASURED.json (bench.py's measure_baseline,
+    pinned branch); read, never written."""
+    with open(os.path.join(REPO, "BASELINE_MEASURED.json")) as fh:
+        return json.load(fh)
+
+
 def run_measurement(sizes: Sizes, device: torch.device) -> dict:
     """Every measurement in order; returns the result object."""
     genome, reads, lens = make_data(sizes)
@@ -523,10 +893,16 @@ def run_measurement(sizes: Sizes, device: torch.device) -> dict:
         torch.cuda.empty_cache()
     repeat = measure_repeat(sizes, device)
     sol = measure_sol(sizes, device)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    scaling = measure_scaling(sizes, device)
+    sharded = measure_sharded_genome(sizes, device)
     on_card = device.type == "cuda"
+    base = pinned_baseline()["reads_per_s"]
     return {
         "metric": "reads_per_s_4kb_ecoli", "value": round(ours, 2),
-        "unit": "reads/s", "vs_baseline": None,
+        "unit": "reads/s", "vs_baseline": round(ours / base, 2),
         "extra": {
             "mapped": mapped, "n_reads": sizes.n_reads,
             "index_build_s": round(t_index, 2), "gcups": round(gcups, 3),
@@ -535,7 +911,7 @@ def run_measurement(sizes: Sizes, device: torch.device) -> dict:
             "product_mixed_bases_per_s": round(mixed_bps),
             "cigar_reads_per_s": round(cigar_rps, 2),
             "indel_reads_per_s": round(indel["indel_reads_per_s"], 2),
-            "indel_vs_baseline": None,
+            "indel_vs_baseline": round(indel["indel_reads_per_s"] / base, 2),
             "indel_counters": indel["indel_counters"],
             "cigar_indel_reads_per_s":
                 round(indel["cigar_indel_reads_per_s"], 2),
@@ -544,7 +920,8 @@ def run_measurement(sizes: Sizes, device: torch.device) -> dict:
             "repeat_reads_per_s": round(repeat["repeat_reads_per_s"], 2),
             "repeat_cigar_reads_per_s":
                 round(repeat["repeat_cigar_reads_per_s"], 2),
-            "repeat_vs_baseline": None,
+            "repeat_vs_baseline":
+                round(repeat["repeat_reads_per_s"] / base, 2),
             "repeat_counters": repeat["repeat_counters"],
             "repeat_warm_counters": repeat["repeat_warm_counters"],
             "repeat_cigar_counters": repeat["repeat_cigar_counters"],
@@ -555,7 +932,14 @@ def run_measurement(sizes: Sizes, device: torch.device) -> dict:
             "platform": device.type, "tiny": sizes.tiny,
             "device": torch.cuda.get_device_name(device) if on_card else "cpu",
             "nvidia_smi": nvidia_smi("name,power.limit") if on_card else None,
-            "baseline_reads_per_s": None, "baseline_omp_reads_per_s": None,
+            "baseline_reads_per_s": round(base, 3),
+            "baseline_omp_reads_per_s": None,
+            "baseline_note": "the *_baseline ratios divide by the reference "
+                             "C++ mapper's single-thread reads/s pinned in "
+                             "BASELINE_MEASURED.json (2,048 x 4 kb reads), "
+                             "not measured on this host; its all-core rate "
+                             "is not measured",
+            "scaling": scaling, "sharded_genome": sharded,
         }}
 
 
@@ -564,7 +948,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--tiny", action="store_true",
                     help="toy sizes (for a CPU run)")
+    ap.add_argument("--scaling-worker", metavar="SPEC",
+                    help="run one process of measure_scaling (JSON spec)")
     args = ap.parse_args(argv)
+    if args.scaling_worker:
+        return scaling_worker(json.loads(args.scaling_worker))
     if args.platform == "cuda":
         if not torch.cuda.is_available():
             print("bench_torch: no CUDA device visible; nothing was measured",

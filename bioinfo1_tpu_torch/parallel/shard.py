@@ -263,11 +263,10 @@ def _merge_mode(n: int) -> str:
 
 
 def _allgather_init_method() -> str:
-    """``tcp://<coordinator address>``, the gloo group's rendezvous.  The
-    JAX package's allgather runs over the coordinator that
-    jax.distributed.initialize already joined, whatever its address; here
-    the group meets at the address itself, so an address without a host
-    is refused (ValueError, one line)."""
+    """``tcp://<coordinator address>``, the gloo group's rendezvous.  An
+    address without a host is refused (ValueError, one line): the JAX
+    package's processes cannot meet there either, since none can register
+    with a coordinator at ``:PORT`` (jax.distributed.initialize fails)."""
     addr = os.environ.get("JAX_COORDINATOR_ADDRESS", "")
     if not addr.partition(":")[0]:
         raise ValueError(

@@ -1299,3 +1299,15 @@ class Mapper:
         for _, lines in self.map_records_iter(records, per_read_stats):
             out.extend(lines)
         return out
+
+
+def map_all(reference_records: Sequence[Tuple[str, str]],
+            read_records: Sequence[Tuple[str, str]],
+            cfg: MapperConfig,
+            device: Optional[torch.device] = None) -> List[str]:
+    """One-shot mapping: the PAF lines of ``read_records`` against the first
+    of ``reference_records``, in input order.  ``device`` defaults to
+    ``resolve_device()``: the card, unless BIOINFO1_PLATFORM=cpu; without
+    a card that raises."""
+    return Mapper(reference_records, cfg, device=device).map_records(
+        read_records)

@@ -35,6 +35,13 @@ run):
      kernel timed too, K5 on those parents against the plain walk, and
      the clusters the card holds at once
      (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.
+  2a. the pinned golden workload (tests/torch_golden.json; its files from
+     bioinfo1_tpu_torch/utils/golden.py): bioinfo1_tpu_torch.map_all with
+     no device argument (on the card) on its reads, then the CLI's eight
+     runs (-a global / local / semiGlobal, score-only and -c; -g 1;
+     -c -g 1); every PAF's sha256 must be the pinned one (made from the
+     JAX package's CLI), each run's kernels must launch (K1, K2 and K3;
+     K1, K4 and K5 under -c; K1 and K3 under -g 1) and no batch may raise.
   2. the CLI's default score-only path at E. coli scale: a 4,641,652 bp
      synthetic genome (direct-address index on the card) and 2,048
      ONT-profile reads (2/4/8 kb plus 10% at 200-500 bp) through
@@ -183,7 +190,6 @@ import io
 import json
 import os
 import signal
-import socket
 import statistics
 import subprocess
 import sys
@@ -212,6 +218,7 @@ N_LONG_READS = 16                 # 50 kb reads (phase 2L)
 N_NOCERT_READS = 512              # -g 1 (phase 2g)
 N_NOCERT_LOCAL_READS = 256        # -a local -g 1 (phase 2g)
 CPU_STAGED_MAX_LEN = 4500
+GOLDEN = os.path.join(REPO, "tests", "torch_golden.json")   # phase 2a
 # Phase 1 draws, from one generator: K1's rows at these (R, N), then the
 # (B, n, m) pairs of the kernel table's K2 / K4 / K5 rows (W = 256).
 CHAIN_SHAPES = ((512, 1536), (64, 16384), (64, 24576))
@@ -1436,6 +1443,82 @@ def run_cli(ref, reads, recs, flags, out_name: str, must_launch,
             "mapper": prof["mapper"]}, lines
 
 
+def golden_kernels(flags) -> tuple:
+    """The kernels a golden run must launch: K1, K4 and K5 under -c (the
+    staged host path too), K1 and K3 without a certificate (-g 1), else
+    K1, K2 and K3 (the recipe has a band-0 bucket)."""
+    if "-c" in flags:
+        return ("lis_chain", "band_parents", "walk_parents")
+    if "-g" in flags:
+        return ("lis_chain", "full_score")
+    return ("lis_chain", "band_score", "full_score")
+
+
+def phase_golden() -> dict:
+    """Phase 2a: the pinned golden workload (tests/torch_golden.json,
+    bioinfo1_tpu_torch/utils/golden.py) on the card.
+    ``bioinfo1_tpu_torch.map_all`` with no device argument must run on the
+    card and give the default run's pinned PAF; then each of the CLI's
+    runs must print its pinned PAF.  Kernel counts are set to 0 just before
+    each and read just after: its kernels must have launched, and no batch
+    may have raised."""
+    import bioinfo1_tpu_torch as port
+    from bioinfo1_tpu_torch import cli
+    from bioinfo1_tpu_torch.utils import golden
+    from bioinfo1_tpu_torch.utils.runtime import resolve_device
+    pinned = golden.load(GOLDEN)
+    recipe = pinned["recipe"]
+    ref, reads = golden.write_inputs(recipe, os.path.join(WORK, "golden"))
+    genome, recs = golden.records(recipe)
+    check(resolve_device().type == "cuda", "map_all would not run on the card")
+    rows = []
+    counters = reset_launches()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        lines = port.map_all([(recipe["ref_name"], genome)], recs,
+                             port.MapperConfig())
+    torch.cuda.synchronize()
+    (want,) = [r["sha256"] for r in pinned["runs"]
+               if r["flags"] == ["-a", "global"]]
+    rows.append({"run": "map_all", "flags": [], "wall_s":
+                 time.perf_counter() - t0, "launches": {
+                     k: getattr(w, a) for k, (w, a) in counters.items()},
+                 "sha256": golden.sha256("".join(f"{x}\n" for x in lines)),
+                 "want": want, "stderr": err.getvalue()[-2000:]})
+    check("Exception during Align" not in err.getvalue(),
+          f"map_all: a batch raised: {err.getvalue()[-2000:]}")
+    for run in pinned["runs"]:
+        counters = reset_launches()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        rc = cli.main(run["flags"] + [ref, reads, "--profile"], stdout=out,
+                      stderr=err)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"golden {run['flags']}: rc {rc}: "
+              f"{err.getvalue()[-2000:]}")
+        mapper = parse_profile(err.getvalue())["mapper"]
+        check(mapper["faults"] == 0,
+              f"golden {run['flags']}: {mapper['faults']} batches raised")
+        rows.append({"run": run["name"], "flags": run["flags"],
+                     "wall_s": wall, "launches": {
+                         k: getattr(w, a) for k, (w, a) in counters.items()},
+                     "sha256": golden.sha256(out.getvalue()),
+                     "want": run["sha256"], "mapper": mapper})
+    for row in rows:
+        for k in golden_kernels(row["flags"]):
+            check(row["launches"][k] >= 1,
+                  f"golden {row['run']}: kernel {k} never launched")
+        check(row["sha256"] == row["want"],
+              f"golden {row['run']}: the PAF's sha256 {row['sha256']} is "
+              f"not the pinned {row['want']}")
+    launches = {k: sum(r["launches"][k] for r in rows)
+                for k in rows[0]["launches"]}
+    return {"phase": "2a", "reads": len(recs), "runs": rows,
+            "launches": launches, "pinned": True}
+
+
 def phase_pipeline(ref, reads, recs) -> tuple:
     row, lines = run_cli(ref, reads, recs, [], "gpu.paf",
                          ("lis_chain", "band_score", "full_score"))
@@ -1646,9 +1729,7 @@ def phase_split(genome: str, recs, cli: dict) -> dict:
 
 def shard_bytes(index) -> list:
     """Bytes of each shard's lookup arrays (its ref_bytes apart)."""
-    return [sum(getattr(s, f).nbytes for f in
-                ("key_hash", "key_pos", "cnt_fr", "cnt_r2", "bucket_off"))
-            for s in index.shards]
+    return [bench_torch.lookup_bytes(s) for s in index.shards]
 
 
 def phase_shard(genome: str, recs, cli: dict) -> dict:
@@ -1939,47 +2020,20 @@ def process_worker(argv) -> int:
     return rc
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def start_processes(n: int, args, name: str, env_of, hold=()) -> list:
-    """n ``--process-worker`` processes of this file (fork + exec, never a
-    fork of this CUDA process) under one coordinator address and merge
-    port; ``env_of(p)`` adds variables (CUDA_VISIBLE_DEVICES), processes
-    in ``hold`` hold after their first batch.  Returns [(Popen, files
-    base)]; stdout and stderr go to the base's .out / .err."""
-    coord, merge = free_port(), free_port()
-    procs = []
-    for p in range(n):
-        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
-                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(p),
-                   BIOINFO1_MERGE_PORT=str(merge), **env_of(p))
-        base = os.path.join(WORK, f"{name}.p{p}")
-        with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
-            procs.append((subprocess.Popen(
-                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                 "--process-worker", base + ".json",
-                 *(["--hold"] if p in hold else []), "--", *args],
-                env=env, cwd=REPO, stdout=out, stderr=err), base))
-    return procs
+    """n ``--process-worker`` processes of this file under one coordinator
+    address and merge port (``bench_torch.start_processes``); ``env_of(p)``
+    adds variables (CUDA_VISIBLE_DEVICES), processes in ``hold`` hold after
+    their first batch.  Returns [(Popen, files base)]; stdout and stderr go
+    to the base's .out / .err."""
+    def base(p):
+        return os.path.join(WORK, f"{name}.p{p}")
 
-
-def stop_processes(procs, timeout: float) -> None:
-    """Wait for every process up to ``timeout`` s in all; kill the rest."""
-    deadline = time.time() + timeout
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=max(0.1, deadline - time.time()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc, _ in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    def argv(p):
+        return [os.path.join(REPO, "chip_smoke.py"), "--process-worker",
+                base(p) + ".json", *(["--hold"] if p in hold else []), "--",
+                *args]
+    return bench_torch.start_processes(n, argv, base, env_of)
 
 
 def read_text(path: str) -> str:
@@ -1999,7 +2053,7 @@ def multi_run(n: int, flags, ref, reads, name: str, want, kernels,
     args = flags + [ref, reads] + (["-o", out] if to_file else [])
     t0 = time.perf_counter()
     procs = start_processes(n, args, name, env_of)
-    stop_processes(procs, 900)
+    bench_torch.stop_processes(procs, 900)
     wall = time.perf_counter() - t0
     rows = []
     for proc, base in procs:
@@ -2126,7 +2180,7 @@ def kill_drill(n: int, ref, recs) -> dict:
         procs[0][0].wait(timeout=120)
         detect_s = time.perf_counter() - t_kill
     finally:
-        stop_processes(procs, 120)
+        bench_torch.stop_processes(procs, 120)
     err0 = read_text(procs[0][1] + ".err")
     rc0 = procs[0][0].returncode
     check(rc0 != 0 and detect_s < 30, f"kill drill: process 0 rc {rc0} "
@@ -2574,6 +2628,8 @@ def main() -> int:
     issued = issued_per_unit(listing)
     emit({"phase": "1s", "int_ops_per_unit": issued})
     torch.cuda.empty_cache()
+    p2a = phase_golden()
+    emit(p2a)
 
     ref, paths, recs, genome, short = write_inputs()
     p2, score_lines = phase_pipeline(ref, paths[N_READS], recs)
@@ -2638,6 +2694,7 @@ def main() -> int:
                                           or main_row["work"])
                           / (needed[name] * main_row["work"])
                           if needed[name] else None,
+                      "golden_launches": p2a["launches"][name],
                       "nocert_launches": p2g["launches"][name],
                       "split_launches": p2d["launches"][name],
                       "shard_launches": p2x["launches"][name],

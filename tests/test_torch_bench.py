@@ -2,9 +2,13 @@
 
 ``python3 bench_torch.py --platform cpu --tiny`` must exit 0 and print one
 JSON line that carries every metric name bench.py prints and the port
-keeps; a measurement that raises must end the run with a non-zero exit
-and no result line.  ``sass_census.py`` is held to a listing in the
-format ``cuobjdump -sass`` prints.
+keeps, the ``*_baseline`` ratios against the rate pinned in
+BASELINE_MEASURED.json, and at toy sizes the two measurements of the
+``tools/`` scripts (``scaling``: one and two CPU processes; ``sharded_genome``:
+two CPU entries, auto-sharded at a 1e3-byte budget); a measurement that
+raises must end the run with a non-zero exit and no result line.
+``sass_census.py`` is held to a listing in the format ``cuobjdump -sass``
+prints.
 """
 
 import json
@@ -26,7 +30,8 @@ EXTRA_KEYS = [
     "cigar_indel_counters", "repeat_reads_per_s", "repeat_cigar_reads_per_s",
     "repeat_vs_baseline", "repeat_counters", "longread",
     "cold_start_reads_per_s", "sol", "platform", "baseline_reads_per_s",
-    "baseline_omp_reads_per_s", "device", "nvidia_smi"]
+    "baseline_omp_reads_per_s", "device", "nvidia_smi", "baseline_note",
+    "scaling", "sharded_genome"]
 LONGREAD_KEYS = ["longread_20k_reads_per_s", "longread_20k_bases_per_s",
                  "longread_20k_cigar_reads_per_s", "longread_50k_reads_per_s",
                  "longread_50k_bases_per_s"]
@@ -50,11 +55,38 @@ def test_bench_tiny_cpu_prints_every_metric():
     assert len(lines) == 1
     res = json.loads(lines[0])
     assert res["metric"] == "reads_per_s_4kb_ecoli"
-    assert res["unit"] == "reads/s" and res["vs_baseline"] is None
+    assert res["unit"] == "reads/s"
     assert res["value"] > 0
     extra = res["extra"]
     for k in EXTRA_KEYS:
         assert k in extra, k
+    # The baseline is the pinned reference rate, read and never measured.
+    with open(os.path.join(REPO, "BASELINE_MEASURED.json")) as fh:
+        base = json.load(fh)["reads_per_s"]
+    assert extra["baseline_reads_per_s"] == round(base, 3)
+    assert extra["baseline_omp_reads_per_s"] is None
+    assert res["vs_baseline"] == round(res["value"] / base, 2)
+    assert extra["indel_vs_baseline"] == \
+        round(extra["indel_reads_per_s"] / base, 2)
+    assert extra["repeat_vs_baseline"] == \
+        round(extra["repeat_reads_per_s"] / base, 2)
+    scaling = extra["scaling"]
+    assert scaling["cards"] == 0 and scaling["platform"] == "cpu"
+    assert sorted(scaling["configs"]) == ["1", "2"]
+    for n, row in scaling["configs"].items():
+        assert row["nproc"] == int(n) and row["oversubscribed"] is False
+        assert row["mapped"] == row["n_reads"] > 0
+        assert row["map_s"] == row["map_only_s"] + row["merge_s"]
+        assert len(row["map_only_runs_s"]) == 3
+    assert scaling["efficiency"]["1"] == 1.0
+    assert scaling["efficiency_map_only"]["1"] == 1.0
+    assert scaling["efficiency"]["2"] > 0
+    sharded = extra["sharded_genome"]
+    assert sharded["entries"] == ["cpu", "cpu"]
+    assert sharded["auto_shards_engaged"] == 2
+    assert sharded["output_identical_to_replicated"] is True
+    assert sharded["mapped_sharded"] == sharded["n_reads"] > 0
+    assert len(sharded["per_entry_lookup_bytes_sharded"]) == 2
     for k in LONGREAD_KEYS:
         assert extra["longread"][k] > 0, k
     # A CPU run states no device rate.
@@ -67,6 +99,53 @@ def test_bench_tiny_cpu_prints_every_metric():
     for k in ("indel_counters", "cigar_indel_counters", "repeat_counters"):
         assert extra[k]["reads"] == extra[k]["mapped"] > 0
         assert "t_host_s" in extra[k] and "realign_reroutes" in extra[k]
+
+
+def test_scaling_workload_is_the_tools_draw_for_draw(tmp_path):
+    """measure_scaling's reads file and genome are
+    tools/measure_scaling.py's and tools/scaling_worker.py's, byte for
+    byte."""
+    import importlib.util
+
+    import numpy as np
+
+    import bench_torch
+    spec = importlib.util.spec_from_file_location(
+        "measure_scaling", os.path.join(REPO, "tools", "measure_scaling.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    want = tool.write_reads(str(tmp_path))
+    got = tmp_path / "port.fasta"
+    bench_torch.write_scaling_reads(str(got), bench_torch.FULL)
+    with open(want) as fh:
+        assert got.read_text() == fh.read()
+    rng = np.random.default_rng(42)            # scaling_worker.py's genome
+    assert bench_torch.scaling_genome(200_000) == "".join(
+        "CATG"[i] for i in rng.integers(0, 4, 200_000))
+
+
+def test_sharded_genome_workload_is_the_demos_draw_for_draw():
+    """measure_sharded_genome's genome and reads are
+    tools/demo_sharded_big_genome.py's (its draws, here at a toy length)."""
+    import dataclasses
+
+    import numpy as np
+
+    import bench_torch
+    sizes = dataclasses.replace(bench_torch.TINY, sharded_genome=50_000,
+                                sharded_reads=6, sharded_read_len=4000)
+    rng = np.random.default_rng(20260822)
+    bases = np.frombuffer(b"CATG", dtype=np.uint8)
+    genome = bases[rng.integers(0, 4, sizes.sharded_genome)]
+    records = []
+    for i in range(sizes.sharded_reads):
+        s = int(rng.integers(0, sizes.sharded_genome - 4000))
+        r = genome[s:s + 4000].copy()
+        pos = rng.integers(0, 4000, 4000 // 50)
+        r[pos] = bases[rng.integers(0, 4, len(pos))]
+        records.append((f"r{i}", r.tobytes().decode("latin1")))
+    assert bench_torch.sharded_genome_workload(sizes) == \
+        (genome.tobytes().decode("latin1"), records)
 
 
 @pytest.mark.parametrize("ql,tl,W", [(5, 9, 2), (7, 3, 4), (1, 1, 128),

@@ -258,6 +258,58 @@ def test_environment_refusals_exit_1(mp_inputs, _cpu_env, monkeypatch, env,
     assert len(err.getvalue().strip().splitlines()) == 1
 
 
+# The JAX package's CLI with jax.distributed.initialize's wait for its
+# peers cut from 300 s to 5; nothing else differs.
+_JAX_CLI_SHORT_WAIT = (
+    "import functools, sys, jax\n"
+    "jax.distributed.initialize = functools.partial(\n"
+    "    jax.distributed.initialize, initialization_timeout=5)\n"
+    "from bioinfo1_tpu import cli\n"
+    "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+@pytest.mark.parametrize("host", ["", "127.0.0.1"], ids=["hostless", "host"])
+def test_hostless_address_fails_in_both_packages(mp_inputs, single, host):
+    """JAX_COORDINATOR_ADDRESS=:PORT, two processes, no BIOINFO1_MERGE_HOST
+    (ROADMAP C9): the port refuses with rc 1 and one line, and two JAX CLI
+    processes fail too, printing nothing: no process can register with the
+    coordinator at a host-less address.  The same two JAX processes with
+    127.0.0.1 in front of the port print the one-process PAF, so the
+    failure is the address's."""
+    from bioinfo1_tpu_torch import cli as tcli
+    _, ref, reads = mp_inputs
+    port, merge = _free_port(), _free_port()
+    env = {"JAX_COORDINATOR_ADDRESS": f"{host}:{port}",
+           "JAX_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _JAX_CLI_SHORT_WAIT, *ARGS, ref, reads],
+        env=_env(JAX_PROCESS_ID=str(p), JAX_PLATFORMS="cpu",
+                 BIOINFO1_MERGE_PORT=str(merge), **env),
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in range(2)]
+    (rc0, out0, err0), (rc1, out1, _) = _finish(procs)
+    # Gloo's connection notices on stdout are library noise.
+    out0, out1 = ("".join(line + "\n" for line in out.splitlines()
+                          if not line.startswith("[Gloo]"))
+                  for out in (out0, out1))
+    if host:
+        assert (rc0, rc1) == (0, 0), err0
+        assert (out0, out1) == (single, "")
+        return
+    assert rc0 != 0 and rc1 != 0
+    assert out0 == out1 == ""
+    assert "RegisterTask" in err0, err0[-2000:]
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in env.items():
+            mp.setenv(k, v)
+        mp.setenv("JAX_PROCESS_ID", "0")
+        out, err = io.StringIO(), io.StringIO()
+        assert tcli.main(ARGS + [ref, reads], stdout=out, stderr=err) == 1
+    assert out.getvalue() == ""
+    assert "names no host" in err.getvalue()
+    assert len(err.getvalue().strip().splitlines()) == 1
+
+
 @pytest.mark.parametrize("env", [
     {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1", "JAX_NUM_PROCESSES": "1"},
     {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1", "JAX_NUM_PROCESSES": "1",
