@@ -15,7 +15,7 @@
 // the band is _NEG.  Then, exactly in the Pallas order: the local clamp,
 // row 0 (j*init), column 0 (i*init), and _NEG for i < 0 or j < 0.
 //
-// A lane never moves, so its neighbours are fixed.  Two kernels share
+// A lane never moves, so its neighbours are fixed.  Three kernels share
 // the file; ops/band.band_plan picks one from W alone:
 //
 // Register paths, W <= kRegMaxW (band_reg_kernel).  Thread t of a read's
@@ -86,8 +86,34 @@
 // band (7 CTAs of 448 threads) a diagonal takes ~0.9 us on an H100, and
 // K4, which issues twice K2's instructions per cell, takes only ~16% more.
 //
-// Scratch path, W > kRegMaxW * kMaxCluster (band_scratch_kernel; any W
-// when called directly): one CTA per read, the
+// Strip path, kRegMaxW * kMaxCluster < W <= the card's w_strip
+// (ops/band.StripCard: 540,672 on an H100 SXM; band_strip_kernel, any W
+// that is a multiple of 128 when called directly).  A read's lanes split
+// into ceil(W / width) strips of `width` owned lanes (1,024-4,096 by
+// ops/band.strip_plan, from the card's SMs and this kernel's occupancy),
+// one CTA each.  A CTA
+// runs the "warps" body over a window of its strip and kStripHalo lanes on
+// each side; the band's walls (lane 0's left, lane W - 1's up) take _NEG
+// from outside, the window's own edges too, and the window's end lanes
+// read the bytes that enter by index on every pair, so every lane's bytes
+// are right.  A wrong value at a window edge moves one lane inward per
+// pair of diagonals, so a CTA runs kStripEpoch = 2 * kStripHalo diagonals
+// alone, then swaps edges with its neighbours through a global buffer: it
+// stores its outer kStripHalo owned lanes of both newest diagonals into
+// slot (epoch & 1), publishes the epoch with a release store, waits for
+// its neighbours' flags with acquire loads and loads their lanes into its
+// halo past L1 (__ldcg).  A strip waits on its neighbours, so all of a
+// read's CTAs must be resident at once: cooperative launches of
+// ops/band.strip_plan's reads_per_launch reads.  Only owned lanes inside
+// the band track goals and store parents; each CTA reduces its own, and
+// the last CTA of a read to finish (strip 0's ticket) merges the strips'
+// under the cluster path's total order.  What bounds it: the "warps"
+// body's instructions a cell and its block sync a diagonal, plus one swap
+// (a device-memory round trip) an epoch; the halo adds 2 * kStripHalo
+// lanes a strip.
+//
+// Scratch path, W > the card's w_strip (band_scratch_kernel; any W when
+// called directly): one CTA per read, the
 // three diagonals in shared memory (12*W bytes, plus K4's W accumulator
 // bytes) while that fits, else in a per-read global scratch; each lane
 // reads its bytes by index and evaluates every border condition; one
@@ -190,8 +216,17 @@ struct Place {
   int warp, nwarps;    // in this CTA
   int rank, nranks;    // this CTA in the read's cluster ("cluster" path)
   bool first, last;    // of the read's group: owns lane 0 / lane W - 1
+                       // (on the "strip" path: of the CTA's window)
   bool wfirst, wlast;  // of its warp
   int b, B, W, half, base, ql, tl, d_stop;
+  // The window's end lanes read the bytes that enter: row (d + q_w) / 2
+  // for its first lane on even d, column d / 2 + t_off for its last lane
+  // on odd d + 1 (q_w = W, t_off = W / 2 where the window is the band).
+  int q_w, t_off;
+  // "strip" path: owns band lane 0 / lane W - 1 (the band's walls: its
+  // neighbour outside the band is _NEG), and owns lanes of the band (not
+  // halo, not past W): only these track goals and store parents.
+  bool lo_wall, hi_wall, owned;
   // "cluster" path: where this warp's edge values go - the slots of
   // Edges below, in this CTA or, at a CTA boundary, in the neighbour's.
   int* ev_out;
@@ -199,6 +234,19 @@ struct Place {
   int* od_out;
   unsigned* q_out;
 };
+
+// Read p.b's bytes, lengths and last diagonal.
+__device__ __forceinline__ void set_read(Place& p, const BandArgs& a) {
+  p.rd.qr = a.q + static_cast<size_t>(p.b) * a.n;
+  p.rd.tr = a.t + static_cast<size_t>(p.b) * a.m;
+  p.rd.n = a.n;
+  p.rd.n_pad = a.n_pad;
+  p.rd.m_eff = a.m_eff;
+  p.rd.t_have = min(a.m, a.m_eff);
+  p.ql = a.q_len[p.b];
+  p.tl = min(a.t_len[p.b], a.m_eff);  // the Pallas target-length clamp
+  p.d_stop = min(p.ql + p.tl, a.n_steps + 1);
+}
 
 // Warp edges of the "warps" and "cluster" paths: the edge scores of the
 // newest odd and even diagonal, the edge query and target bytes, and the
@@ -228,7 +276,7 @@ __device__ __forceinline__ void group_sync() {
 // parent accumulators packed four to a word, and the goal trackers of
 // kMode (0 global, 1 local, 2 semiGlobal).
 template <bool kParents, bool kDashFree, int kMode, int LPT, bool kMulti,
-          bool kCluster>
+          bool kCluster, bool kStrip = false>
 struct Lanes {
   static constexpr int NW = LPT / 4;
   int ev[LPT], od[LPT];  // newest even / odd diagonal
@@ -296,6 +344,36 @@ struct Lanes {
     }
   }
 
+  // Diagonals 0 and 1 of the thread's lanes, their bytes on diagonal 2,
+  // and the goal trackers.
+  __device__ __forceinline__ void init_lanes(const Place& p,
+                                             const BandArgs& a) {
+    match = a.match;
+    mismatch = a.mismatch;
+    gap = a.gap;
+    init = kMode == 0 ? a.gap : 0;
+    cc = ci = rc = rj = 0;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      const int l = p.base + k;
+      ev[k] = l == p.half ? 0 : kNeg;                           // diagonal 0
+      od[k] = (l == p.half || l == p.half - 1) ? init : kNeg;  // diagonal 1
+      best[k] = kNeg;
+      best_d[k] = 0;
+    }
+    // The lanes' bytes on diagonal 2: i = half + 1 - l, j = 2 - i.
+#pragma unroll
+    for (int x = 0; x < NW; ++x) {
+      qw[x] = tw[x] = pw[x] = 0;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = p.half + 1 - (p.base + 4 * x + y);
+        qw[x] |= p.rd.q_at(i) << (8 * y);
+        tw[x] |= p.rd.t_at(2 - i) << (8 * y);
+      }
+    }
+  }
+
   // Goal candidates of diagonal d, just written to `h`.
   __device__ __forceinline__ void track(const Place& p, const int (&h)[LPT],
                                         int d) {
@@ -303,7 +381,10 @@ struct Lanes {
     if constexpr (kMode == 1) {
       // Valid lanes (1 <= i <= ql, 1 <= j <= tl) are one interval.
       const int klo = max(i0 - p.ql, i0 - d + 1) - p.base;
-      const int khi = min(i0 - 1, p.tl - d + i0) - p.base;
+      int khi = min(i0 - 1, p.tl - d + i0) - p.base;
+      if constexpr (kStrip) {
+        if (!p.owned) khi = -1;
+      }
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
         if (k >= klo && k <= khi && h[k] > best[k]) {
@@ -314,7 +395,8 @@ struct Lanes {
     } else if constexpr (kMode == 2) {
       const int i_col = d - p.tl;
       const int kc = i0 - i_col - p.base;
-      if (i_col >= 0 && i_col <= p.ql && kc >= 0 && kc < LPT) {
+      if (i_col >= 0 && i_col <= p.ql && kc >= 0 && kc < LPT &&
+          (!kStrip || p.owned)) {
         const int v = pick(h, kc);
         if (v > cc) {
           cc = v;
@@ -323,7 +405,8 @@ struct Lanes {
       }
       const int j_row = d - p.ql;
       const int kr = i0 - p.ql - p.base;
-      if (j_row >= 0 && j_row <= p.tl && kr >= 0 && kr < LPT) {
+      if (j_row >= 0 && j_row <= p.tl && kr >= 0 && kr < LPT &&
+          (!kStrip || p.owned)) {
         const int v = pick(h, kr);
         if (v > rc) {
           rc = v;
@@ -336,6 +419,13 @@ struct Lanes {
   // K4: the thread's LPT parent bytes of diagonals d - 3 .. d, one store.
   __device__ __forceinline__ void store_parents(const Place& p,
                                                 unsigned char* par, int d) {
+    if constexpr (kStrip) {
+      if (!p.owned) {
+#pragma unroll
+        for (int x = 0; x < NW; ++x) pw[x] = 0;
+        return;
+      }
+    }
     unsigned char* dst =
         par + (static_cast<size_t>((d - 2) >> 2) * p.B + p.b) * p.W + p.base;
     if constexpr (LPT == 4) {
@@ -356,6 +446,9 @@ struct Lanes {
   __device__ __forceinline__ void even(const Place& p, Edges& e, int d) {
     int edge = __shfl_up_sync(p.mask, od[LPT - 1], 1);
     if (p.wfirst) edge = (kMulti && !p.first) ? e.od[p.warp] : kNeg;
+    if constexpr (kStrip) {
+      if (p.lo_wall) edge = kNeg;
+    }
     step<false, kBorder>(p, edge, d);
     track(p, ev, d);
   }
@@ -368,8 +461,8 @@ struct Lanes {
     // The band's end lanes fetch the bytes that enter with the next two
     // shifts: column d/2 + W/2 for lane W - 1 on diagonal d + 1, row
     // (d + 2 + W)/2 for lane 0 on diagonal d + 2.
-    const unsigned t_in = p.last ? p.rd.t_at((d >> 1) + p.half) : 0u;
-    const unsigned q_in = p.first ? p.rd.q_at((d + 2 + p.W) >> 1) : 0u;
+    const unsigned t_in = p.last ? p.rd.t_at((d >> 1) + p.t_off) : 0u;
+    const unsigned q_in = p.first ? p.rd.q_at((d + 2 + p.q_w) >> 1) : 0u;
     even<kBorder>(p, e, d);
     if constexpr (kMulti) {
       if (p.wfirst) {
@@ -396,6 +489,9 @@ struct Lanes {
     const int d1 = d + 1;
     int edge = __shfl_down_sync(p.mask, ev[0], 1);
     if (p.wlast) edge = (kMulti && !p.last) ? e.ev[p.warp + 1] : kNeg;
+    if constexpr (kStrip) {
+      if (p.hi_wall) edge = kNeg;
+    }
     step<true, kBorder>(p, edge, d1);
     track(p, od, d1);
     if constexpr (kParents) {
@@ -459,7 +555,6 @@ __global__ void __launch_bounds__(kMulti ? kRegMaxW / LPT
                                   (kParents && kMulti) ? 1 : 0)
 band_reg_kernel(BandArgs a) {
   static_assert(kMulti || !kCluster, "a cluster runs the warps body");
-  constexpr int NW = LPT / 4;
   __shared__ Edges e;
   const int lane = threadIdx.x & 31;
   Place p;
@@ -506,42 +601,13 @@ band_reg_kernel(BandArgs a) {
     }
   }
   p.half = p.W >> 1;
-  p.rd.qr = a.q + static_cast<size_t>(p.b) * a.n;
-  p.rd.tr = a.t + static_cast<size_t>(p.b) * a.m;
-  p.rd.n = a.n;
-  p.rd.n_pad = a.n_pad;
-  p.rd.m_eff = a.m_eff;
-  p.rd.t_have = min(a.m, a.m_eff);
-  p.ql = a.q_len[p.b];
-  p.tl = min(a.t_len[p.b], a.m_eff);  // the Pallas target-length clamp
-  p.d_stop = min(p.ql + p.tl, a.n_steps + 1);
+  p.q_w = p.W;
+  p.t_off = p.half;
+  set_read(p, a);
   const int W = p.W, B = p.B, b = p.b, base = p.base;
 
   Lanes<kParents, kDashFree, kMode, LPT, kMulti, kCluster> s;
-  s.match = a.match;
-  s.mismatch = a.mismatch;
-  s.gap = a.gap;
-  s.init = kMode == 0 ? a.gap : 0;
-  s.cc = s.ci = s.rc = s.rj = 0;
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    const int l = base + k;
-    s.ev[k] = l == p.half ? 0 : kNeg;                             // diagonal 0
-    s.od[k] = (l == p.half || l == p.half - 1) ? s.init : kNeg;  // diagonal 1
-    s.best[k] = kNeg;
-    s.best_d[k] = 0;
-  }
-  // The lanes' bytes on diagonal 2: i = half + 1 - l, j = 2 - i.
-#pragma unroll
-  for (int x = 0; x < NW; ++x) {
-    s.qw[x] = s.tw[x] = s.pw[x] = 0;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int i = p.half + 1 - (base + 4 * x + y);
-      s.qw[x] |= p.rd.q_at(i) << (8 * y);
-      s.tw[x] |= p.rd.t_at(2 - i) << (8 * y);
-    }
-  }
+  s.init_lanes(p, a);
   if constexpr (kMulti) {
     // No CTA writes into another's shared memory before all have started.
     if constexpr (kCluster) group_sync<true>();
@@ -634,6 +700,255 @@ band_reg_kernel(BandArgs a) {
       out[b] = row_wins ? rc : cc;
       out[B + b] = row_wins ? p.ql : ci;
       out[2 * B + b] = row_wins ? rj : p.tl;
+    }
+  }
+}
+
+// ---- strip path ----------------------------------------------------------
+
+constexpr int kStripHalo = 32;               // H: halo lanes on each side
+constexpr int kStripEpoch = 2 * kStripHalo;  // E: diagonals between swaps
+constexpr int kStripLpt = 8;
+constexpr int kHaloThreads = kStripHalo / kStripLpt;
+constexpr int kStripMaxWidth = kRegMaxW;     // owned lanes of a strip
+constexpr int kStripMaxThreads =
+    kStripMaxWidth / kStripLpt + 2 * kHaloThreads;
+// A strip's record in the scratch, in ints: the epochs it has published
+// (its flag), strip 0's ticket (strips of the read that have finished),
+// two goal triples, and the exchange buffer [slot][side][halo thread]
+// [ev, od] (slot = epoch parity; side 0 its first owned lanes, 1 its last).
+constexpr int kRecFlag = 0;
+constexpr int kRecTicket = 1;
+constexpr int kRecGoal = 32;
+constexpr int kRecX = 64;
+constexpr int kStripRecInts = kRecX + 2 * 2 * kHaloThreads * 2 * kStripLpt;
+static_assert(kStripEpoch % 4 == 0, "an epoch ends on a parent byte");
+
+struct StripArgs {
+  int* rec;    // (B, strips, kStripRecInts) int32, zeroed by the wrapper
+  int width;   // owned lanes of a strip, a multiple of 128
+  int strips;  // ceil(W / width)
+  int b0;      // first read of this launch
+};
+
+// The swap's flags: a release store after a strip's edges, acquire loads
+// before it reads its neighbours' (whose edges it loads with __ldcg: L1 is
+// not coherent between SMs).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The swap before epoch k (k >= 1): the strip's first and last
+// kHaloThreads owned threads store both newest diagonals into slot k & 1,
+// thread 0 publishes k and waits until both neighbours have, then the halo
+// threads load the lanes they mirror from the neighbour that owns them.
+// Two slots suffice: a neighbour writes slot k & 1 again only at swap
+// k + 2, after this strip has published k + 1, i.e. after it read slot
+// k & 1.
+template <class L>
+__device__ __forceinline__ void strip_swap(L& s, int* rec, int strip,
+                                           int strips, int k) {
+  constexpr int LPT = kStripLpt, HT = kHaloThreads, X = 2 * LPT;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int slot = k & 1;
+  int* mine = rec + strip * kStripRecInts;
+  int* dst = nullptr;
+  if (t >= HT && t < 2 * HT) {
+    dst = mine + kRecX + ((slot * 2 + 0) * HT + t - HT) * X;
+  } else if (t >= T - 2 * HT && t < T - HT) {
+    dst = mine + kRecX + ((slot * 2 + 1) * HT + t - (T - 2 * HT)) * X;
+  }
+  if (dst != nullptr) {
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    d4[0] = make_int4(s.ev[0], s.ev[1], s.ev[2], s.ev[3]);
+    d4[1] = make_int4(s.ev[4], s.ev[5], s.ev[6], s.ev[7]);
+    d4[2] = make_int4(s.od[0], s.od[1], s.od[2], s.od[3]);
+    d4[3] = make_int4(s.od[4], s.od[5], s.od[6], s.od[7]);
+  }
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    st_release(mine + kRecFlag, k);
+    if (strip > 0) {
+      while (ld_acquire(mine - kStripRecInts + kRecFlag) < k) {
+      }
+    }
+    if (strip < strips - 1) {
+      while (ld_acquire(mine + kStripRecInts + kRecFlag) < k) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  const int* src = nullptr;
+  if (t < HT && strip > 0) {
+    src = mine - kStripRecInts + kRecX + ((slot * 2 + 1) * HT + t) * X;
+  } else if (t >= T - HT && strip < strips - 1) {
+    src = mine + kStripRecInts + kRecX + ((slot * 2 + 0) * HT + t - (T - HT)) * X;
+  }
+  if (src != nullptr) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    const int4 a0 = __ldcg(s4), a1 = __ldcg(s4 + 1);
+    const int4 a2 = __ldcg(s4 + 2), a3 = __ldcg(s4 + 3);
+    s.ev[0] = a0.x, s.ev[1] = a0.y, s.ev[2] = a0.z, s.ev[3] = a0.w;
+    s.ev[4] = a1.x, s.ev[5] = a1.y, s.ev[6] = a1.z, s.ev[7] = a1.w;
+    s.od[0] = a2.x, s.od[1] = a2.y, s.od[2] = a2.z, s.od[3] = a2.w;
+    s.od[4] = a3.x, s.od[5] = a3.y, s.od[6] = a3.z, s.od[7] = a3.w;
+  }
+}
+
+// A strip of `width` band lanes [s0, s1) of read b on one CTA of
+// width / LPT + 2 * kHaloThreads threads: the window [s0 - H, s1' + H)
+// (s1' = s0 + width) runs the "warps" body; its end lanes read their bytes
+// by index on every pair (so every lane's bytes are right, the halo's too),
+// the band's walls take _NEG from outside, and a CTA swaps its edges with
+// its neighbours before every epoch of kStripEpoch diagonals but the
+// first.  A wrong value at the window's edge moves one lane inward per
+// pair of diagonals, so after an epoch the owned lanes are still exact.
+// Goals: each CTA reduces its owned lanes' trackers, the last CTA of the
+// read to finish (strip 0's ticket) takes the best of all strips.
+template <bool kParents, bool kDashFree, int kMode>
+__global__ void __launch_bounds__(kStripMaxThreads, 1)
+band_strip_kernel(BandArgs a, StripArgs x) {
+  constexpr int LPT = kStripLpt;
+  __shared__ Edges e;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int T = static_cast<int>(blockDim.x);
+  const int lane = tid & 31;
+  const int strip = static_cast<int>(blockIdx.x) % x.strips;
+  Place p;
+  p.b = x.b0 + static_cast<int>(blockIdx.x) / x.strips;
+  p.W = a.W;
+  p.B = a.B;
+  p.half = p.W >> 1;
+  p.warp = tid >> 5;
+  p.nwarps = (T + 31) >> 5;
+  p.rank = 0;
+  p.nranks = 1;
+  const int cnt = min(32, T - 32 * p.warp);  // threads of this warp
+  p.mask = cnt == 32 ? 0xffffffffu : (1u << cnt) - 1u;
+  p.first = tid == 0;
+  p.last = tid == T - 1;
+  p.wfirst = lane == 0;
+  p.wlast = lane == cnt - 1;
+  const int s0 = strip * x.width;
+  const int s1 = min(s0 + x.width, p.W);
+  const int w0 = s0 - kStripHalo;  // the window's first lane
+  p.base = w0 + tid * LPT;
+  p.q_w = p.W - 2 * w0;
+  p.t_off = 1 - p.half + w0 + T * LPT - 1;
+  p.lo_wall = p.base == 0;
+  p.hi_wall = p.base + LPT == p.W;
+  p.owned = p.base >= s0 && p.base < s1;
+  set_read(p, a);
+
+  Lanes<kParents, kDashFree, kMode, LPT, true, false, true> s;
+  s.init_lanes(p, a);
+  if (p.wlast) e.od[p.warp + 1] = s.od[LPT - 1];
+  __syncthreads();
+
+  // Epochs of kStripEpoch diagonals from d = 2; W + 2 starts an epoch
+  // (W is a multiple of 128), so an epoch is all border or all interior.
+  // d_stop is the read's, so every CTA of the read swaps as often.
+  int* rec = x.rec + static_cast<size_t>(p.b) * x.strips * kStripRecInts;
+  for (int d0 = 2; d0 <= p.d_stop; d0 += kStripEpoch) {
+    if (d0 > 2) strip_swap(s, rec, strip, x.strips, (d0 - 2) / kStripEpoch);
+    const int d_end = min(d0 + kStripEpoch, p.d_stop + 1);
+    int d = d0;
+    if (d0 < p.W + 2) {
+#pragma unroll 1
+      for (; d + 1 < d_end; d += 2) s.template pair<true>(p, e, a.par, d);
+    } else {
+#pragma unroll 1
+      for (; d + 1 < d_end; d += 2) s.template pair<false>(p, e, a.par, d);
+    }
+    if (d < d_end) {  // d == d_stop, even: the last diagonal alone
+      s.template even<true>(p, e, d);
+      if constexpr (kParents) s.store_parents(p, a.par, d);
+    }
+  }
+
+  int* out = a.out;
+  const int W = p.W, B = p.B, b = p.b;
+  if constexpr (kMode == 0) {
+    const int dg = p.ql + p.tl;
+    const int xl = p.tl - p.ql + W - (dg & 1);
+    const bool on = dg >= 2 && dg == p.d_stop && xl >= 0 && (xl >> 1) < W;
+    const int kg = (xl >> 1) - p.base;
+    if (on && p.owned && kg >= 0 && kg < LPT)
+      out[b] = (dg & 1) ? pick(s.od, kg) : pick(s.ev, kg);
+    if (strip == 0 && tid == 0) {
+      if (!on) out[b] = 0;
+      out[B + b] = p.ql;
+      out[2 * B + b] = p.tl;
+    }
+    return;
+  } else {
+    int g[2][3];
+    if constexpr (kMode == 1) {
+      int c = kNeg, gi = 0, gj = 0;
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const int i = ((s.best_d[k] + W) >> 1) - (p.base + k);
+        const int j = s.best_d[k] - i;
+        if (goal_better(s.best[k], i, j, c, gi, gj)) {
+          c = s.best[k];
+          gi = i;
+          gj = j;
+        }
+      }
+      group_best<true>(c, gi, gj, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      g[0][0] = c, g[0][1] = gi, g[0][2] = gj;
+      g[1][0] = g[1][1] = g[1][2] = 0;
+    } else {
+      int cc = s.cc, ci = s.ci, z0 = 0;
+      group_best<true>(cc, ci, z0, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      int rc = s.rc, rj = s.rj, z1 = 0;
+      group_best<true>(rc, rj, z1, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      g[0][0] = cc, g[0][1] = ci, g[0][2] = z0;
+      g[1][0] = rc, g[1][1] = rj, g[1][2] = z1;
+    }
+    if (tid != 0) return;
+    int* mine = rec + strip * kStripRecInts + kRecGoal;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) mine[r] = g[r / 3][r % 3];
+    __threadfence();
+    if (atomicAdd(rec + kRecTicket, 1) != x.strips - 1) return;
+    // The last strip of the read to finish: every other strip's triples
+    // were stored and fenced before its ticket.
+    __threadfence();
+    for (int r = 0; r < x.strips; ++r) {
+      if (r == strip) continue;
+      const int* o = rec + r * kStripRecInts + kRecGoal;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c2 = __ldcg(o + 3 * k), i2 = __ldcg(o + 3 * k + 1),
+                  j2 = __ldcg(o + 3 * k + 2);
+        if (goal_better(c2, i2, j2, g[k][0], g[k][1], g[k][2])) {
+          g[k][0] = c2;
+          g[k][1] = i2;
+          g[k][2] = j2;
+        }
+      }
+    }
+    if constexpr (kMode == 1) {
+      const bool hit = g[0][0] > kNeg;
+      out[b] = hit ? g[0][0] : 0;
+      out[B + b] = hit ? g[0][1] : 0;
+      out[2 * B + b] = hit ? g[0][2] : 0;
+    } else {
+      const bool row_wins = g[1][0] > g[0][0];
+      out[b] = row_wins ? g[1][0] : g[0][0];
+      out[B + b] = row_wins ? p.ql : g[0][1];
+      out[2 * B + b] = row_wins ? g[1][1] : p.tl;
     }
   }
 }
@@ -825,7 +1140,8 @@ enum BandPath {
   kPathWarp = 0,
   kPathWarps = 1,
   kPathScratch = 2,
-  kPathCluster = 3
+  kPathCluster = 3,
+  kPathStrip = 4
 };
 
 using RegKernel = void (*)(BandArgs);
@@ -911,9 +1227,63 @@ int launch_reg(const BandArgs& a, int reads_per_cta, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+using StripKernel = void (*)(BandArgs, StripArgs);
+
+template <bool kParents, bool kDashFree>
+StripKernel strip_kernel(int mode) {
+  if (mode == 0) return band_strip_kernel<kParents, kDashFree, 0>;
+  if (mode == 1) return band_strip_kernel<kParents, kDashFree, 1>;
+  return band_strip_kernel<kParents, kDashFree, 2>;
+}
+
+// The launches of the "strip" path: ceil(W / width) CTAs of width / LPT +
+// 2 * kHaloThreads threads per read, reads_per_launch reads a cooperative
+// launch (every CTA of a launch is resident at once, so a strip may wait
+// on its neighbours); the launches run one after the other on the stream.
+// A launch the card cannot hold at once is an error
+// (cudaErrorCooperativeLaunchTooLarge), never a reason to take another
+// path.
+template <bool kParents, bool kDashFree>
+int launch_strips(const BandArgs& a, int width, int reads_per_launch,
+                  int* rec, cudaStream_t stream) {
+  if (width % 128 != 0 || width < 128 || width > kStripMaxWidth ||
+      a.W % 128 != 0 || reads_per_launch < 1 || rec == nullptr ||
+      a.mode < 0 || a.mode > 2)
+    return cudaErrorInvalidValue;
+  StripArgs x;
+  x.rec = rec;
+  x.width = width;
+  x.strips = (a.W + width - 1) / width;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(static_cast<unsigned>(width / kStripLpt +
+                                            2 * kHaloThreads), 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const StripKernel kern = strip_kernel<kParents, kDashFree>(a.mode);
+  for (int b0 = 0; b0 < a.B; b0 += reads_per_launch) {
+    x.b0 = b0;
+    const int nb = min(reads_per_launch, a.B - b0);
+    cfg.gridDim = dim3(static_cast<unsigned>(nb * x.strips), 1, 1);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a, x);
+    if (e != cudaSuccess) {
+      // The runtime also records a refused launch as the last error:
+      // take it here, or the next entry point would report it as its own.
+      cudaGetLastError();
+      return static_cast<int>(e);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The plan (path, lanes per thread, reads per CTA - the cluster size on
-// the "cluster" path - and shared bytes) comes from ops/band.band_plan; a
-// plan no kernel was built for is refused.
+// the "cluster" path, the strip width on the "strip" path - and shared
+// bytes - reads per launch on the "strip" path) comes from
+// ops/band.band_plan; a plan no kernel was built for is refused.
 template <bool kParents>
 int launch_band(const void* q, int n, int n_pad, const void* t, int m,
                 int m_eff, const void* q_len, const void* t_len, int B, int W,
@@ -965,6 +1335,13 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
     return dash_free ? launch_cluster<kParents, true, 8>(a, reads_per_cta, st)
                      : launch_cluster<kParents, false, 8>(a, reads_per_cta,
                                                           st);
+  if (path == kPathStrip && lpt == kStripLpt) {  // past the cluster path
+    int* rec = static_cast<int*>(scratch);
+    return dash_free ? launch_strips<kParents, true>(a, reads_per_cta,
+                                                     smem_bytes, rec, st)
+                     : launch_strips<kParents, false>(a, reads_per_cta,
+                                                      smem_bytes, rec, st);
+  }
 #ifdef BIOINFO1_BAND_LPT_TRIAL  // chip_smoke.py --lpt-trial: the other LPTs
   BIOINFO1_BAND_CASE(kPathWarp, 16, false)
   BIOINFO1_BAND_CASE(kPathWarps, 4, true)
@@ -978,9 +1355,11 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
 
 // K2.  q: (B, n) uint8; t: (B, m) uint8; q_len/t_len: (B,) int32; out:
 // (3, B) int32 rows score, goal_i, goal_j.  W is a multiple of 128.  path,
-// lpt, reads_per_cta (the cluster size on the "cluster" path) and
-// smem_bytes are ops/band.band_plan's; scratch is (B, 3 * W) int32 on the
-// scratch path when smem_bytes == 0, else unused.
+// lpt, reads_per_cta (the cluster size on the "cluster" path, the strip
+// width on the "strip" path) and smem_bytes (reads per launch on the
+// "strip" path) are ops/band.band_plan's; scratch is (B, 3 * W) int32 on
+// the scratch path when smem_bytes == 0, (B, strips * kStripRecInts) int32
+// of zeros on the "strip" path, else unused.
 extern "C" int bioinfo1_band_score(const void* q, int n, int n_pad,
                                    const void* t, int m, int m_eff,
                                    const void* q_len, const void* t_len,
@@ -1034,4 +1413,28 @@ extern "C" int bioinfo1_band_cluster_occupancy(int parents, int mode,
         out, reg_kernel<false, true, 8, true, true>(mode), &cfg);
   }
   return static_cast<int>(e);
+}
+
+// How many CTAs of the "strip" path an SM of the current device holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at `threads`
+// threads, K2 (parents 0) or K4, in `mode`, with or without `dash_free`,
+// into *out (ops/band.strip_card sizes the cooperative launches by it).
+extern "C" int bioinfo1_band_strip_occupancy(int parents, int mode,
+                                             int dash_free, int threads,
+                                             int* out) {
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const StripKernel k =
+      parents ? (dash_free ? strip_kernel<true, true>(mode)
+                           : strip_kernel<true, false>(mode))
+              : (dash_free ? strip_kernel<false, true>(mode)
+                           : strip_kernel<false, false>(mode));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, threads, 0));
+}
+
+// The ints of one strip's record in the "strip" path's scratch
+// (kStripRecInts), into *out: ops/band sizes the scratch by it.
+extern "C" int bioinfo1_band_strip_rec_ints(int* out) {
+  *out = kStripRecInts;
+  return static_cast<int>(cudaSuccess);
 }

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     # q, n, n_pad, t, m, m_eff, q_len, t_len, B, W, n_steps, mode,
     # dash_free, match, mismatch, gap, scratch, out, path, lpt,
-    # reads_per_cta (the cluster size on the "cluster" path), smem_bytes
-    # (ops/band.band_plan), stream
+    # reads_per_cta (the cluster size on the "cluster" path, the strip
+    # width on the "strip" path), smem_bytes (reads per launch on the
+    # "strip" path) (ops/band.band_plan), stream
     "bioinfo1_band_score": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     # as bioinfo1_band_score, with parents before the stream
@@ -58,6 +59,11 @@ _SIGNATURES = {
                               _P],
     # parents, mode, cluster, threads, out (int*): clusters resident at once
     "bioinfo1_band_cluster_occupancy": [_I, _I, _I, _I, _P],
+    # parents, mode, dash_free, threads, out (int*): strip CTAs an SM holds
+    # at once
+    "bioinfo1_band_strip_occupancy": [_I, _I, _I, _I, _P],
+    # out (int*): the ints of a strip's record in the strip path's scratch
+    "bioinfo1_band_strip_rec_ints": [_P],
     # parents, S4, B, W, goal_i, goal_j, score, q, qn, t, tm, mode, match,
     # mismatch, gap, slab_rows, window (ops/trace.WALK_*), out, stream
     "bioinfo1_walk_parents": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
@@ -212,6 +218,19 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def call(name: str, *args, device: torch.device) -> None:
+    """Call C entry point ``name`` with ``device`` current, so the
+    library's own CUDA runtime acts there whatever device the calling
+    thread had made current; raise on a CUDA error.  Counts nothing: a
+    launch goes through ``launch``."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.bioinfo1_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
 def launch(wrapper, name: str, *args, device: torch.device,
            counter: str = "launches") -> None:
     """Call C entry point ``name`` with ``device`` (the tensors' device)
@@ -219,12 +238,7 @@ def launch(wrapper, name: str, *args, device: torch.device,
     device the calling thread had made current; raise on a CUDA error, else
     count one launch on ``wrapper.<counter>`` (``launches`` unless the
     wrapper serves two kernels) and on ``launches_by_device``."""
-    lib = library()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(*args)
-    if err != 0:
-        msg = lib.bioinfo1_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    call(name, *args, device=device)
     with _lock:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
         launches_by_device[device.index] = (

@@ -23,8 +23,9 @@ reads them).  Unlike the JAX wrapper, B is not padded to 128.
 by path of ``band_plan`` on ``.path_launches``),
 CPU tensors take ``align_scores_banded_plain``.  ``band_plan`` picks the
 kernel from W alone: lanes in registers up to ``W_REG`` in one CTA, up to
-``W_CLUSTER`` across the CTAs of a thread-block cluster, the scratch
-kernel above.  ``certify`` is plain
+``W_CLUSTER`` across the CTAs of a thread-block cluster, up to the card's
+``StripCard.w_strip`` (``W_STRIP`` on an H100 SXM) in strips on
+co-resident CTAs that swap halos once an epoch, the scratch kernel above.  ``certify`` is plain
 tensor code on either device, as in the JAX package.  The port rounds
 every band to 128 lanes on both devices (the JAX CPU path rounds its
 realign band to 16).
@@ -32,7 +33,9 @@ realign band to 16).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import itertools
 import threading
 
 import torch
@@ -217,21 +220,88 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
 # per read ("warps", one read per CTA, one block sync per diagonal).  Up to
 # W_CLUSTER lanes the same threads span the CTAs of a thread-block cluster
 # ("cluster", one cluster per read, one cluster barrier per diagonal, the
-# edge values between CTAs in distributed shared memory).  Wider bands take
-# the scratch kernel (one CTA per read, the diagonals in shared memory or,
-# past SMEM_LIMIT, a per-read global scratch).
+# edge values between CTAs in distributed shared memory).  Up to the card's
+# w_strip lanes (StripCard; W_STRIP on an H100 SXM) a read's band splits
+# into strips of STRIP_WIDTHS lanes, one CTA each
+# ("strip": the "warps" body over the strip and STRIP_HALO lanes on each
+# side; the CTAs swap their edges through a global buffer once every
+# STRIP_EPOCH diagonals, so all of a read's CTAs must be resident at once:
+# cooperative launches of reads_per_launch reads).  Wider bands take the
+# scratch kernel (one CTA per read, the diagonals in shared memory or, past
+# SMEM_LIMIT, a per-read global scratch).
 W_REG = 4096
 W_CLUSTER = 32768
-PATHS = ("warp", "warps", "scratch", "cluster")  # the C launcher's numbers
+PATHS = ("warp", "warps", "scratch", "cluster", "strip")  # C's numbers
 WARP_LPT = {128: 4, 256: 8}                # "warp" path: W -> LPT
 WARPS_LPT = 8
 MAX_READS_PER_CTA = 4
 MAX_CLUSTER = 8                            # the portable cluster size
 SM_COUNT = 132                             # H100
 SCRATCH_THREADS = 512
+STRIP_HALO = 32                # H: halo lanes on each side of a strip
+STRIP_EPOCH = 2 * STRIP_HALO   # diagonals between two swaps
+STRIP_WIDTHS = (1024, 2048, 4096)
+STRIP_REC_INTS = 320           # csrc/band_score.cu kStripRecInts
 # Static shared memory of the register kernel: four 33-entry edge arrays
 # and 32 goal triples, plus two goal triples of each CTA of a cluster.
 REG_SMEM_BYTES = 4 * 33 * 4 + 32 * 3 * 4 + 2 * MAX_CLUSTER * 3 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StripCard:
+    """What the strip plan needs to know of a card: its SMs, how many strip
+    CTAs of each of STRIP_WIDTHS an SM holds at once (the least over K2
+    and K4, the three modes and both variants) and the ints of a strip's
+    record in the scratch (csrc/band_score.cu kStripRecInts)."""
+    sms: int
+    per_sm: tuple
+    rec_ints: int = STRIP_REC_INTS
+
+    def held(self, width: int) -> int:
+        """Strip CTAs of ``width`` owned lanes the card holds at once."""
+        return self.sms * self.per_sm[STRIP_WIDTHS.index(width)]
+
+    @property
+    def w_strip(self) -> int:
+        """The widest band whose strips of one read are all resident at
+        once: past it, the scratch kernel."""
+        return max(self.held(S) * S for S in STRIP_WIDTHS)
+
+
+# An H100 SXM: 132 SMs, each holding 4 strip CTAs of 1,024 lanes, 2 of
+# 2,048 or 1 of 4,096 (cudaOccupancyMaxActiveBlocksPerMultiprocessor on
+# the card).  The plan of a caller that names no card; a launch on a card
+# plans with that card's own (strip_card).
+H100_SXM = StripCard(SM_COUNT, (4, 2, 1))
+W_STRIP = H100_SXM.w_strip     # 540,672 lanes
+_strip_cards: dict = {}        # CUDA device index -> StripCard
+
+
+def strip_card(dev: torch.device) -> StripCard:
+    """The StripCard of CUDA device ``dev``, asked of the runtime on the
+    first call for that device and kept: its SM count, the occupancy of
+    every strip kernel at each width (bioinfo1_band_strip_occupancy), the
+    library's record size."""
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    card = _strip_cards.get(idx)
+    if card is None:
+        per_sm, out = [], ctypes.c_int(0)
+        where = torch.device("cuda", idx)
+        for S in STRIP_WIDTHS:
+            threads = (S + 2 * STRIP_HALO) // WARPS_LPT
+            held = []
+            for variant in itertools.product((0, 1), (0, 1, 2), (0, 1)):
+                build.call("bioinfo1_band_strip_occupancy", *variant,
+                           threads, ctypes.byref(out), device=where)
+                held.append(out.value)
+            per_sm.append(min(held))
+        build.call("bioinfo1_band_strip_rec_ints", ctypes.byref(out),
+                   device=where)
+        card = StripCard(
+            torch.cuda.get_device_properties(idx).multi_processor_count,
+            tuple(per_sm), out.value)
+        _strip_cards[idx] = card
+    return card
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,7 +312,10 @@ class BandPlan:
     reads_per_cta: int
     smem_bytes: int         # shared memory of one CTA
     scratch_ints: int       # per-read int32 global scratch (0: none)
-    cluster: int = 1        # CTAs per read (the "cluster" path: 2-8)
+    cluster: int = 1        # CTAs per read on the "cluster" path (2-8)
+    strip: int = 0          # "strip" path: owned lanes of a strip
+    strips: int = 0         # "strip" path: strips (CTAs) of a read
+    reads_per_launch: int = 0   # "strip" path: reads a cooperative launch
 
     @property
     def threads_per_read(self) -> int:
@@ -267,11 +340,14 @@ def cluster_shape(W: int) -> tuple:
     raise ValueError(f"cluster_shape: W={W} is wider than {W_CLUSTER}")
 
 
-def band_plan(W: int, B: int, want_parents: bool) -> BandPlan:
+def band_plan(W: int, B: int, want_parents: bool,
+              card: StripCard | None = None) -> BandPlan:
     """Which kernel of csrc/band_score.cu serves a W-lane band, and its
-    launch shape.  The path depends on W alone; B only sets how many
-    one-warp reads share a CTA (more once the reads outnumber what the
-    card's SMs hold at one CTA each)."""
+    launch shape.  The path depends on W alone (and, past W_CLUSTER, on
+    the widest band ``card`` holds in strips; an H100 SXM when None); B
+    only sets how many one-warp reads share a CTA (more once the reads
+    outnumber what the card's SMs hold at one CTA each) and, on the strip
+    path, the strip width and the reads a launch (``strip_plan``)."""
     if W % LANES or W < LANES:
         raise ValueError(f"band_plan: W={W} is not a multiple of {LANES}")
     if W in WARP_LPT:
@@ -285,12 +361,62 @@ def band_plan(W: int, B: int, want_parents: bool) -> BandPlan:
         c, threads = cluster_shape(W)
         return BandPlan("cluster", WARPS_LPT, threads, 1, REG_SMEM_BYTES, 0,
                         c)
+    if W <= (card or H100_SXM).w_strip:
+        return strip_plan(W, B, card)
     return scratch_plan(W, want_parents)
+
+
+def _strip_launches(W: int, B: int, width: int, card: StripCard) -> tuple:
+    """(launches, reads a launch) of B reads in strips of ``width`` lanes:
+    as few cooperative launches as the card holds, the reads spread
+    evenly."""
+    launches = -(-max(B, 1) // (card.held(width) // -(-W // width)))
+    return launches, -(-max(B, 1) // launches)
+
+
+def strip_cost(W: int, B: int, width: int, card: StripCard) -> int:
+    """The strip path's time model, in lanes: a launch takes as long as
+    its busiest SM's lanes (the owned and halo lanes of the CTAs it holds)
+    need, diagonal for diagonal, and the launches run one after another.
+    It orders the widths as ``chip_smoke.py --strip-trial`` timed them on
+    an NVIDIA H100 80GB HBM3 at 700 W: at W = 65,536 strips of 1,024 lanes
+    win for 1-2 reads (one CTA a SM), of 4,096 for 8 (one CTA a SM against
+    four), and at W = 32,896 for 32 reads 1,024 in 2 launches beats 4,096
+    in 3."""
+    launches, per = _strip_launches(W, B, width, card)
+    ctas = per * -(-W // width)
+    return launches * -(-ctas // card.sms) * (width + 2 * STRIP_HALO)
+
+
+def strip_plan(W: int, B: int, card: StripCard | None = None,
+               width: int | None = None) -> BandPlan:
+    """The strip kernel's launch shape on ``card`` (an H100 SXM when None)
+    for any W that is a multiple of 128 up to its ``w_strip``
+    (``band_plan`` gives it the bands past W_CLUSTER), in strips of
+    ``width`` lanes (one of STRIP_WIDTHS whose strips of a read the card
+    holds at once), by default the one of least ``strip_cost`` (the
+    narrowest of equals); the reads go in as few launches as the card's
+    CTAs allow, spread evenly."""
+    card = card or H100_SXM
+    if W % LANES or W < LANES or W > card.w_strip:
+        raise ValueError(f"strip_plan: W={W} is no multiple of {LANES} up "
+                         f"to {card.w_strip}")
+    fits = [S for S in STRIP_WIDTHS if card.held(S) >= -(-W // S)]
+    if width is None:
+        width = min(fits, key=lambda S: strip_cost(W, B, S, card))
+    if width not in fits:
+        raise ValueError(f"strip_plan: strips of {width} lanes of a W={W} "
+                         "band are not all resident at once")
+    strips = -(-W // width)
+    return BandPlan("strip", WARPS_LPT,
+                    (width + 2 * STRIP_HALO) // WARPS_LPT, 1, REG_SMEM_BYTES,
+                    strips * card.rec_ints, strip=width, strips=strips,
+                    reads_per_launch=_strip_launches(W, B, width, card)[1])
 
 
 def scratch_plan(W: int, want_parents: bool) -> BandPlan:
     """The scratch kernel's launch shape (any W; ``band_plan`` gives it the
-    bands past W_CLUSTER)."""
+    bands past the card's ``w_strip``)."""
     # Per-read state: three int32 diagonals, plus K4's W accumulator bytes
     # (csrc/band_score.cu state_ints).
     state_ints = 3 * W + (W // 4 if want_parents else 0)
@@ -326,16 +452,20 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
     parents = (torch.empty((parent_rows(n_steps), B, W), dtype=torch.uint8,
                            device=dev) if want_parents else None)
     if B:
-        plan = band_plan(W, B, want_parents)
-        scratch = (torch.empty((B, plan.scratch_ints), dtype=torch.int32,
-                               device=dev) if plan.scratch_ints else None)
+        plan = band_plan(W, B, want_parents, strip_card(dev))
+        scratch = None
+        if plan.scratch_ints:
+            # The strip path's flags and tickets start at 0 on every call.
+            scratch = (torch.zeros if plan.path == "strip" else torch.empty)(
+                (B, plan.scratch_ints), dtype=torch.int32, device=dev)
+        shape = {"cluster": (plan.cluster, plan.smem_bytes),
+                 "strip": (plan.strip, plan.reads_per_launch)}.get(
+                     plan.path, (plan.reads_per_cta, plan.smem_bytes))
         args = [q_bytes.data_ptr(), n, n_pad, t_bytes.data_ptr(), m, m_eff,
                 q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,
                 int(dash_free), match, mismatch, gap,
                 0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                PATHS.index(plan.path), plan.lpt,
-                plan.cluster if plan.path == "cluster" else plan.reads_per_cta,
-                plan.smem_bytes]
+                PATHS.index(plan.path), plan.lpt, *shape]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if want_parents:
             build.launch(align_scores_banded, "bioinfo1_band_parents", *args,

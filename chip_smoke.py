@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
                            --chain-trial | --chain-profile | --full-trial |
-                           --split-trial | --shard-trial [--genome-mb N] |
-                           --process-trial]
+                           --strip-trial | --split-trial |
+                           --shard-trial [--genome-mb N] | --process-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
 run):
@@ -28,12 +28,18 @@ run):
      cluster size and threads per CTA: one warp per read (W = 128, 256;
      also with more reads than fill whole CTAs), several warps per read
      (W = 512, 1024, 4096), a thread-block cluster per read (W = 19968,
-     24576) and the scratch kernel (W = 32896), all three modes and both
-     dash_free settings on each.  Then K2 and K4 on the cluster path at
+     24576) and strips on co-resident CTAs (W = 32896, 65536; K4 and K5
+     at W = 32896), all three modes and both dash_free settings on each;
+     every strip row is also held to the scratch kernel on the same
+     inputs, which is timed beside it.  Then K2 and K4 on the cluster path at
      the 50 kb reads' shape (11 reads of ~46 kb, W = 25088) against the
      plain version and the scratch kernel on the same inputs, the scratch
-     kernel timed too, K5 on those parents against the plain walk, and
-     the clusters the card holds at once
+     kernel timed too, K5 on those parents against the plain walk; K2 (2
+     reads) and K4 (1 read, the -c chunk) on strips at the 100 kb reads'
+     realign shape (~96-100 kb against regions 3,000 bases longer, W =
+     65536) against the plain version, every parent byte of the rows K4
+     writes (the kernel table's strip rows); the strip card the plan read
+     (ops/band.strip_card) and the clusters the card holds at once
      (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.
   2a. the pinned golden workload (tests/torch_golden.json; its files from
      bioinfo1_tpu_torch/utils/golden.py): bioinfo1_tpu_torch.map_all with
@@ -98,6 +104,16 @@ run):
      must have launched), then with ops/band.band_plan sending every band
      past W_REG to the scratch kernel, then as planned again; the three
      PAFs must be byte-identical; reads/s of each run.
+  2U. the main path at 100 kb: 8 ONT-profile reads of 100 kb from the
+     bench's genome through Mapper.map_records in-process, score-only, a
+     fresh and an adapted pass (realign at W = 65,536, then the fused step
+     at the proved band: both on strips, which must launch in each pass),
+     then both passes again with ops/band.band_plan sending every band past
+     W_CLUSTER to the scratch kernel: the PAFs of a pass must be
+     byte-identical, faults 0; reads/s of each pass.  Then -c on 2 of the
+     reads (K4 on strips, one read a chunk, and K5): every CIGAR spans its
+     PAF line's extents and scores, recomputed on the host, the score-only
+     run's score.
   2r. bench_torch.measure_repeat() at full size (a 4,641,652 bp
      repeat-structured genome, 1,026 + 1,026 reads, score-only and -c)
      with its reads/s and counters, then bench_torch.measure_sol(): K6's
@@ -122,6 +138,14 @@ run):
   With --lpt-trial phase 0 builds K2 / K4 with every lanes-per-thread
   variant, phase 1t times them at the phase-1 pairs (the table behind
   ops/band.WARP_LPT and WARPS_LPT), and the run ends there.
+  With --strip-trial phase 1u times K2 / K4's strip path alone: against
+  the scratch kernel at the kernel table's shape (W = 32,896, B = 32, n =
+  4,096; K4 at B = 16) and at the 100 kb reads' realign shape (W =
+  65,536, 8 reads of ~100 kb; K4 on one), against the cluster path at
+  its 50 kb shape (W = 25,088, strips forced), each strip width the card
+  holds at the table's shape and at 1, 2, 4, 6, 8 and 12 reads of 100 kb
+  (K4 at one), the bound of every row and the strip kernel's integer
+  instructions per cell; outputs must be equal; the run ends there.
   With --walk-trial phase 1w times K5 alone (cold / L2-warm, the 50 kb
   parents, bench_torch's long-read rates) and the run ends there; it uses
   nothing that K5's wrapper did not have before its redesign, so a copy
@@ -169,13 +193,16 @@ run):
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
 The second-to-last line is the kernel table as JSON: per kernel (K1-K6,
-and K2's cluster path as its own entry, launched on phase 2L) its
+K2's cluster path as its own entry, launched on phase 2L, and K2's and
+K4's strip path, launched on phase 2U) its
 launches on its path, its time, the plain version's, and its bound - the
 larger of its bytes over the card's memory rate and the int32 operations
 the function needs (NEEDED_OPS per unit, times this run's cells inside
 the matrix) over the card's issue rate.  What the kernel's own SASS loop
 issues per unit stands beside it (int_ops_per_unit, issued_over_needed)
-and moves no bound.  The last line is {"ok": true, "device": {...}}.
+and moves no bound; the line before the table gives the run's wall
+seconds, the build included.  The last line is {"ok": true, "device":
+{...}}.
 Exits non-zero, printing no result, when no CUDA device is visible.
 Scratch files go to build/chip_smoke/, and every JSON line printed is also
 appended to build/chip_smoke/smoke.jsonl (the whole record, where a
@@ -215,6 +242,19 @@ N_STAGED_READS = 256              # -c -g 1 (phase 2s)
 N_STAGED_FASTA_READS = 512        # --bug-compat on FASTA (phase 2s)
 N_CPU_STAGED_READS = 32           # staged runs on the CPU (phase 3)
 N_LONG_READS = 16                 # 50 kb reads (phase 2L)
+N_ULTRA_READS = 8                 # 100 kb reads (phase 2U)
+W_100K = 65536                    # their realign band
+N_ULTRA_CIGAR_READS = 2           # of them under -c (phase 2U)
+ULTRA_LEN = 100000
+# The ONT profile (3% insertions, 4% deletions) makes a read ~1.7% shorter
+# than its fragment: fragments of 101,700 bases give reads of 99.7-100.3
+# kb.  Fragments of 100,000 give reads of 98.1-98.6 kb, some in the 98,304
+# length bucket, whose doubled match budget (73,728) K1 refuses (ROADMAP
+# C11): phase 2U maps two of those apart and reports what happens.
+ULTRA_FRAGMENT = 101700
+# What those two reads give today (ROADMAP C11): each batch faults and the
+# reads come out unmapped.
+C11_OUTCOME = {"reads": [98096, 98218], "faults": 2, "paf_lines": 0}
 N_NOCERT_READS = 512              # -g 1 (phase 2g)
 N_NOCERT_LOCAL_READS = 256        # -a local -g 1 (phase 2g)
 CPU_STAGED_MAX_LEN = 4500
@@ -253,8 +293,10 @@ NEEDED_OPS = {
     "lis_chain": 5,
     "band_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_score_cluster": bench_torch.NEEDED_OPS_PER_CELL,
+    "band_score_strip": bench_torch.NEEDED_OPS_PER_CELL,
     "full_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_parents": bench_torch.NEEDED_OPS_PER_CELL + 5,
+    "band_parents_strip": bench_torch.NEEDED_OPS_PER_CELL + 5,
     "walk_parents": 5,
     "int32_probe": bench_torch.probe.source_ops(1, 1),
 }
@@ -267,10 +309,16 @@ KERNELS = {
     # K2's cluster path (kRegMaxW < W <= 32,768): the 50 kb reads' bands.
     "band_score_cluster": ("bioinfo1_tpu_torch/csrc/band_score.cu",
                            "bioinfo1_tpu/ops/pallas_band.py:56"),
+    # K2 / K4's strip path (32,768 < W <= 540,672): reads of ~66 kb and more
+    # (band_strip_kernel).
+    "band_score_strip": ("bioinfo1_tpu_torch/csrc/band_score.cu",
+                         "bioinfo1_tpu/ops/pallas_band.py:56"),
     "full_score": ("bioinfo1_tpu_torch/csrc/full_score.cu",
                    "bioinfo1_tpu/ops/pallas_align.py:45"),
     "band_parents": ("bioinfo1_tpu_torch/csrc/band_score.cu",
                      "bioinfo1_tpu/ops/pallas_band.py:56"),
+    "band_parents_strip": ("bioinfo1_tpu_torch/csrc/band_score.cu",
+                           "bioinfo1_tpu/ops/pallas_band.py:56"),
     "walk_parents": ("bioinfo1_tpu_torch/csrc/walk_parents.cu",
                      "bioinfo1_tpu/ops/trace.py:160"),
     "int32_probe": ("bioinfo1_tpu_torch/csrc/int32_probe.cu",
@@ -344,6 +392,62 @@ def parents_err(q_lens, t_lens, m_eff):
                    parents_err_chunked(got.parents, want.parents, q_lens,
                                        t_lens, m_eff))
     return err
+
+
+@contextlib.contextmanager
+def band_plan_as(make):
+    """ops/band.band_plan replaced by ``make(planned)`` for the body, where
+    ``planned`` is the real one (the control runs of the strip path)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    planned = bd.band_plan
+    bd.band_plan = make(planned)
+    try:
+        yield
+    finally:
+        bd.band_plan = planned
+
+
+def scratch_past_cluster(planned):
+    """A band_plan with the scratch kernel for every band past W_CLUSTER
+    (the path such bands took before the strip path), else ``planned``."""
+    from bioinfo1_tpu_torch.ops import band as bd
+
+    def plan(W: int, B: int, want_parents: bool, card=None):
+        if W > bd.W_CLUSTER:
+            return bd.scratch_plan(W, want_parents)
+        return planned(W, B, want_parents, card)
+    return plan
+
+
+def strip_always(planned):
+    """A band_plan with the strip kernel for every band (a trial's)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    return lambda W, B, want_parents, card=None: bd.strip_plan(W, B, card)
+
+
+def strip_width(S: int):
+    """A band_plan factory: strips of S lanes wherever the plan takes
+    strips (a trial's), as few launches as the card holds."""
+    from bioinfo1_tpu_torch.ops import band as bd
+
+    def make(planned):
+        def plan(W, B, want_parents, card=None):
+            got = planned(W, B, want_parents, card)
+            return (bd.strip_plan(W, B, card, width=S)
+                    if got.path == "strip" else got)
+        return plan
+    return make
+
+
+def against_scratch(row: dict, run, err_fn, got) -> None:
+    """Hold a strip-path row's output ``got`` to the scratch kernel on the
+    same inputs (``run()`` under scratch_past_cluster) and time that
+    kernel in the same call: the time the strip path replaces."""
+    with band_plan_as(scratch_past_cluster):
+        err = err_fn(got, run())
+        check(err == 0, f"{row['call']}: the strip path differs from the "
+                        f"scratch kernel (max abs err {err})")
+        row.update(scratch_ms=cuda_ms(run, 1), max_abs_err_vs_scratch=err)
 
 
 # ---- phase 1 inputs -------------------------------------------------------
@@ -466,29 +570,34 @@ def phase_kernels(dev) -> dict:
 
     def plan_of(B, W, want_parents):
         """Which kernel of csrc/band_score.cu the row ran on."""
-        plan = bd.band_plan(W, B, want_parents)
+        plan = bd.band_plan(W, B, want_parents, bd.strip_card(dev))
         return {"path": plan.path, "lpt": plan.lpt,
                 "reads_per_cta": plan.reads_per_cta,
                 "cluster": plan.cluster,
-                "threads_per_cta": plan.threads_per_cta}
+                "threads_per_cta": plan.threads_per_cta,
+                "strip": plan.strip, "strips": plan.strips,
+                "reads_per_launch": plan.reads_per_launch}
 
     def band_row(pairs, W, mode, dash_free, reps):
         qq, qql, tt, ttl = pairs
         B = qq.shape[0]
-        row = compare(
+
+        def run():
+            return bd.align_scores_banded(qq, qql, tt, ttl, *scoring, band=W,
+                                          mode=mode, dash_free=dash_free)
+        row, got = compare(
             f"band W={W} B={B} n={qq.shape[1]} mode={mode} "
-            f"dash_free={dash_free}",
-            lambda: bd.align_scores_banded(qq, qql, tt, ttl, *scoring,
-                                           band=W, mode=mode,
-                                           dash_free=dash_free),
+            f"dash_free={dash_free}", run,
             lambda: bd.align_scores_banded_plain(
                 qq, qql, tt, ttl, *scoring, band=W, mode=mode,
-                dash_free=dash_free), reps=reps)
+                dash_free=dash_free), reps=reps, keep=True)
         row.update(plan_of(B, W, False))
         row.update(band_work(qq, qql, tt, ttl, W, False))
         rows["band_score"].append(row)
-        if row["path"] == "cluster":
-            rows["band_score_cluster"].append(row)
+        if row["path"] in ("cluster", "strip"):
+            rows[f"band_score_{row['path']}"].append(row)
+        if row["path"] == "strip":
+            against_scratch(row, run, max_abs_err, got)
 
     def first(B):
         return [x[:B].contiguous() for x in (q, ql, t, tl)]
@@ -499,14 +608,15 @@ def phase_kernels(dev) -> dict:
         for dash_free in (True, False):
             band_row((q, ql, t, tl), 256, mode, dash_free, 3)
     # Every dispatch path at the same pairs: one warp per read (W = 128),
-    # several warps (W = 512 ... 4096), a cluster per read (W = 24576, the
-    # kernel table's cluster row, and 19968), the scratch kernel (W =
-    # 32896).
+    # several warps (W = 512 ... 4096), a cluster per read (W = 24576 and
+    # 19968), strips (W = 32896: 33 strips of 1,024 lanes in 2 launches on
+    # an H100 SXM; 65536: 16 strips of 4,096, one launch), each strip row
+    # beside the scratch kernel.
     for B, W in ((256, 128), (256, 512), (256, 1024), (256, 4096),
-                 (32, 24576), (32, 19968), (32, 32896)):
+                 (32, 24576), (32, 19968), (32, 32896), (8, 65536)):
         band_row(first(B), W, 0, True, 3 if W <= 1024 else 1)
-    # Small pairs: every mode and variant on the several-warps and the
-    # scratch path, and a B that is no multiple of the reads per CTA.
+    # Small pairs: every mode and variant on the several-warps, the cluster
+    # and the strip path, and a B that is no multiple of the reads per CTA.
     small = pair_inputs(rng, 12, 600, 900, dev)
     many = pair_inputs(rng, 531, 512, 768, dev)
     check(bd.band_plan(128, 531, False).reads_per_cta > 1
@@ -538,6 +648,12 @@ def phase_kernels(dev) -> dict:
         row.update(plan_of(B, W, True))
         row.update(band_work(qq, qql, tt, ttl, W, True))
         rows["band_parents"].append(row)
+        if row["path"] == "strip":
+            rows["band_parents_strip"].append(row)
+            against_scratch(row, lambda: bd.align_scores_banded(
+                qq, qql, tt, ttl, *scoring, band=W, mode=mode,
+                dash_free=dash_free, want_parents=True),
+                parents_err(qql, ttl, m_eff), out)
         walk_args = (out.parents, out.goal_i, out.goal_j, out.score, qq, tt,
                      *scoring, mode)
         wrow, codes = compare(
@@ -549,15 +665,16 @@ def phase_kernels(dev) -> dict:
         return out.score
 
     # K4 at the fused -c shape in each mode, then the other widths of the
-    # register paths (the last is a wide realign call).
+    # register paths (the last two are wide realign calls: the cluster
+    # path, and strips).
     for B, W, mode in ((256, 256, 0), (256, 256, 1), (256, 256, 2),
                        (256, 128, 0), (256, 512, 0), (128, 1024, 0),
-                       (32, 4096, 0), (16, 24576, 0)):
+                       (32, 4096, 0), (16, 24576, 0), (16, 32896, 0)):
         parents_and_walk(*first(B), W, mode, True, 3 if W <= 256 else 1)
     rows["walk_cache"] = walk_cache_rows(dev, q, ql, t, tl)
     del q, ql, t, tl
-    # Small pairs: every mode and variant on the several-warps and the
-    # scratch path; the ragged last CTA of the one-warp path.
+    # Small pairs: every mode and variant on the several-warps, the cluster
+    # and the strip path; the ragged last CTA of the one-warp path.
     for mode in (0, 1, 2):
         for dash_free in (True, False):
             for W in (512, 19968, 32896):
@@ -621,6 +738,15 @@ def phase_kernels(dev) -> dict:
     rows["walk_parents"].append(walk_row_50k(pairs, scoring))
     del pairs
     torch.cuda.empty_cache()
+    # The strip path at the 100 kb reads' realign shape: the kernel
+    # table's rows for K2's and K4's strip path.
+    k2_100k, k4_100k = band_rows_100k(pairs_100k(rng, dev, 2), scoring)
+    rows["band_score"].append(k2_100k)
+    rows["band_score_strip"].insert(0, k2_100k)
+    rows["band_parents"].append(k4_100k)
+    rows["band_parents_strip"].insert(0, k4_100k)
+    rows["strip_card"] = dataclasses.asdict(bd.strip_card(dev))
+    torch.cuda.empty_cache()
     # K1 on the match rows the 50 kb reads give it on the main path.
     f, r, cnt = chain_rows_50k(dev)[0]
     rows["lis_chain"].append(chain_row(
@@ -669,19 +795,16 @@ def band_rows_50k(pairs, scoring) -> list:
     q, ql, t, tl = pairs
     W, (B, n) = W_50K, q.shape
     m_eff = bd.band_shapes(n, t.shape[1], W)[2]
-    planned = bd.band_plan
     out = []
     for parents in (False, True):
         def run(scratch=False, plain=False):
             fn = (bd.align_scores_banded_plain if plain
                   else bd.align_scores_banded)
-            if scratch:
-                bd.band_plan = lambda W_, B_, p_: bd.scratch_plan(W_, p_)
-            try:
+            with band_plan_as(lambda planned: (
+                    lambda W_, B_, p_, card=None: bd.scratch_plan(W_, p_))
+                    if scratch else planned):
                 return fn(q, ql, t, tl, *scoring, band=W, mode=0,
                           dash_free=True, want_parents=parents)
-            finally:
-                bd.band_plan = planned
         err_fn = parents_err(ql, tl, m_eff) if parents else max_abs_err
         row, got = compare(
             f"band{'+parents' if parents else ''} W={W} B={B} n={n} mode=0 "
@@ -696,6 +819,56 @@ def band_rows_50k(pairs, scoring) -> list:
         row.update(scratch_ms=cuda_ms(lambda: run(scratch=True), 1),
                    max_abs_err_vs_scratch=err,
                    **dataclasses.asdict(bd.band_plan(W, B, parents)))
+        row.update(band_work(q, ql, t, tl, W, parents))
+        out.append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def written_rows_err(a, b, q_lens, t_lens, n: int, m: int, W: int) -> int:
+    """The number of parent bytes where two parent tensors differ in the
+    rows each read's kernel writes (up to its last diagonal): the cells
+    outside the matrix too."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    _, _, m_eff, n_steps = bd.band_shapes(n, m, W)
+    last = (q_lens.long() + t_lens.long().clamp(max=m_eff)).clamp(
+        max=n_steps + 1)
+    return max((int((a[:(d - 2) // 4 + 1, r] != b[:(d - 2) // 4 + 1, r])
+                    .sum()) for r, d in enumerate(last.tolist()) if d >= 2),
+               default=0)
+
+
+def band_rows_100k(pairs, scoring) -> list:
+    """K2 (B = 2) and K4 (B = 1, the -c chunk of a 100 kb read) on the
+    strip path at the 100 kb reads' realign shape (W = 65,536), as the
+    card plans them, held to the plain version on the same inputs: score
+    and goals, and for K4 every parent byte of the rows it writes."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    W = W_100K
+    out = []
+    for parents, B in ((False, 2), (True, 1)):
+        q, ql, t, tl = (x[:B].contiguous() for x in pairs)
+        n, m = q.shape[1], t.shape[1]
+        plan = bd.band_plan(W, B, parents, bd.strip_card(q.device))
+        check(plan.path == "strip", f"W={W}: the {plan.path} path")
+
+        def run(plain=False):
+            fn = (bd.align_scores_banded_plain if plain
+                  else bd.align_scores_banded)
+            return fn(q, ql, t, tl, *scoring, band=W, mode=0,
+                      dash_free=True, want_parents=parents)
+        m_eff = bd.band_shapes(n, m, W)[2]
+
+        def err_fn(got, want):
+            if not parents:
+                return max_abs_err(got, want)
+            return max(parents_err(ql, tl, m_eff)(got, want),
+                       written_rows_err(got.parents, want.parents, ql, tl,
+                                        n, m, W))
+        row = compare(f"band{'+parents' if parents else ''} W={W} B={B} "
+                      f"n={n} mode=0 dash_free=True", run,
+                      lambda: run(plain=True), reps=1, err_fn=err_fn)
+        row.update(dataclasses.asdict(plan))
         row.update(band_work(q, ql, t, tl, W, parents))
         out.append(row)
         torch.cuda.empty_cache()
@@ -1260,6 +1433,8 @@ def issued_per_unit(listing: str) -> dict:
             "band_score": band(False),
             "band_score_cluster": band(False, 25088, 11),
             "band_parents_cluster": band(True, 25088, 11),
+            "band_score_strip": band(False, W_100K, 2),
+            "band_parents_strip": band(True, W_100K, 1),
             "band_parents": band(True),
             "full_score": full_issued(listing),
             "walk_parents": sass.walk_step_loop(listing)["int_per_step"],
@@ -1380,6 +1555,10 @@ def launch_counters() -> dict:
             "lis_chain": (ch.lis_chain, "launches"),
             "band_score": (bd.align_scores_banded, "launches"),
             "band_score_cluster": (_PathCount("cluster"), "launches"),
+            # K2 and K4 on the strip path together: a score-only run
+            # launches K2 alone there, a -c run K4 alone (phase 2U).
+            "band_score_strip": (_PathCount("strip"), "launches"),
+            "band_parents_strip": (_PathCount("strip"), "launches"),
             "full_score": (al.align_scores, "launches"),
             "band_parents": (bd.align_scores_banded, "parent_launches"),
             "walk_parents": (tr.walk_parents, "launches")}
@@ -2260,12 +2439,13 @@ def phase_longread(dev) -> dict:
     genome, recs = longread_records()
     mapper = Mapper([("bench", genome)], MapperConfig(), device=dev)
     mapper.device_index()
-    planned = bd.band_plan
 
-    def scratch_past_w_reg(W, B, want_parents):
-        if W > bd.W_REG:
-            return bd.scratch_plan(W, want_parents)
-        return planned(W, B, want_parents)
+    def scratch_past_w_reg(planned):
+        def plan(W, B, want_parents, card=None):
+            if W > bd.W_REG:
+                return bd.scratch_plan(W, want_parents)
+            return planned(W, B, want_parents, card)
+        return plan
 
     runs, outs, launches = [], [], None
     for name in ("cluster", "scratch", "cluster_again"):
@@ -2274,16 +2454,13 @@ def phase_longread(dev) -> dict:
         mapper._budget_boost.clear()
         before = mapper.counters.as_dict()
         counters = reset_launches()
-        if name == "scratch":
-            bd.band_plan = scratch_past_w_reg
-        try:
+        with band_plan_as(scratch_past_w_reg if name == "scratch"
+                          else lambda planned: planned):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             lines = mapper.map_records(recs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            bd.band_plan = planned
         got = {k: getattr(w, a) for k, (w, a) in counters.items()}
         paths = dict(bd.align_scores_banded.path_launches)
         if launches is None:
@@ -2313,6 +2490,336 @@ def phase_longread(dev) -> dict:
     torch.cuda.empty_cache()
     return {"phase": "2L", "reads": len(recs), "read_len": 50000,
             "byte_identical": True, "runs": runs, "launches": launches}
+
+
+def ultralong_records(fragment: int = ULTRA_FRAGMENT):
+    """8 ONT-profile reads of fragments of ``fragment`` bases (reads of
+    ~100 kb by default) from the bench's genome."""
+    genome = bench_torch.make_data(bench_torch.FULL)[0]
+    recs = sim.simulate_reads(genome, (fragment,) * N_ULTRA_READS,
+                              np.random.default_rng(bench_torch.SEED + 71))
+    return genome.tobytes().decode("latin1"), recs
+
+
+def cigar_spans(cigar: str) -> dict:
+    """Bases of each CIGAR op (M, I, D)."""
+    import re
+    out = {"M": 0, "I": 0, "D": 0}
+    for n, op in re.findall(r"(\d+)([MID])", cigar):
+        out[op] += int(n)
+    return out
+
+
+def cigar_score(cigar: str, q: str, t: str, t0: int, match: int,
+                mismatch: int, gap: int) -> int:
+    """The score of ``cigar`` (the reference's convention: I consumes the
+    target, D the query) over query ``q`` and target ``t`` from ``t0``,
+    with the '-' rule (a gap over a '-' byte is free)."""
+    import re
+    i, j, score = 0, t0, 0
+    for n, op in re.findall(r"(\d+)([MID])", cigar):
+        for _ in range(int(n)):
+            if op == "M":
+                score += match if q[i] == t[j] else mismatch
+                i, j = i + 1, j + 1
+            elif op == "I":
+                score += 0 if t[j] == "-" else gap
+                j += 1
+            else:
+                score += 0 if q[i] == "-" else gap
+                i += 1
+    return score
+
+
+def phase_ultralong(dev) -> dict:
+    """Phase 2U: the score-only main path on reads of 100 kb, in-process.
+    A fresh pass realigns them at W = 65,536 and the adapted pass runs the
+    fused step at the band they proved: both past W_CLUSTER, so on strips
+    as planned (launched in each pass), then again with the scratch kernel
+    past W_CLUSTER (scratch_past_cluster); the PAFs of a pass must be
+    byte-identical, no batch may raise.  Then -c on 2 of the reads (K4 on
+    strips, B = 1 a chunk): every CIGAR spans its PAF line's extents and
+    scores, on the host, what the score-only run gave the read."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    genome, recs = ultralong_records()
+    mapper = Mapper([("bench", genome)], MapperConfig(), device=dev)
+    mapper.device_index()
+    runs, pafs, launches = [], {}, None
+    for name, make in (("strip", lambda planned: planned),
+                       ("scratch", scratch_past_cluster)):
+        mapper._band_by_key.clear()
+        mapper._budget_boost.clear()
+        for pass_ in ("fresh", "adapted"):
+            before = mapper.counters.as_dict()
+            counters = reset_launches()
+            with band_plan_as(make):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lines = mapper.map_records(recs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = {k: getattr(w, a) for k, (w, a) in counters.items()}
+            paths = dict(bd.align_scores_banded.path_launches)
+            if launches is None:
+                launches = got
+            after = mapper.counters.as_dict()
+            check(after["faults"] == 0, f"100 kb {name} {pass_}: a batch "
+                                        "raised")
+            runs.append({"run": name, "pass": pass_, "wall_s": wall,
+                         "reads_per_s_map": len(recs) / wall,
+                         "paf_lines": len(lines),
+                         "band_path_launches": paths,
+                         "bands": {f"{cap},{int(fc)}": band for (cap, fc),
+                                   band in mapper._band_by_key.items()},
+                         "counters": {k: after[k] - before.get(k, 0)
+                                      for k in after
+                                      if k != "cert_hit_rate" and
+                                      isinstance(after[k], (int, float))}})
+            pafs[name, pass_] = lines
+            want = "strip" if name == "strip" else "scratch"
+            check(paths[want] >= 1 and paths["strip" if name == "scratch"
+                                              else "scratch"] == 0,
+                  f"100 kb {name} {pass_}: the {want} path did not take "
+                  f"the wide bands ({paths})")
+    for pass_ in ("fresh", "adapted"):
+        check(pafs["strip", pass_] == pafs["scratch", pass_],
+              f"100 kb reads, {pass_} pass: the PAF differs between the "
+              "strip path and the scratch kernel")
+    check(len(pafs["strip", "fresh"]) >= 0.9 * len(recs),
+          f"100 kb reads: only {len(pafs['strip', 'fresh'])} of "
+          f"{len(recs)} mapped")
+    res = {"phase": "2U", "reads": len(recs),
+           "read_lens": [len(r) for _, r in recs],
+           "byte_identical": True, "runs": runs, "launches": launches,
+           "cigar": ultralong_cigar(mapper, recs[:N_ULTRA_CIGAR_READS]),
+           "bucket_top": bucket_top_faults(mapper)}
+    del mapper
+    torch.cuda.empty_cache()
+    return res
+
+
+def bucket_top_faults(mapper) -> dict:
+    """ROADMAP C11: two reads of fragments of 100,000 bases that land in
+    the 98,304 length bucket (98.1-98.2 kb), mapped as planned: the faults
+    (K1 refuses the doubled budget of 73,728 matches), the PAF lines, the
+    wall.  The outcome must stay the documented one (C11_OUTCOME), so that
+    a regression or a fix shows."""
+    from bioinfo1_tpu_torch.pipeline import mapper as mp
+    _, recs = ultralong_records(ULTRA_LEN)
+    floor = mapper.cfg.k + mapper.cfg.w - 1
+    top = [r for r in recs if mp._bucket_cap(len(r[1]), floor) == 98304][:2]
+    mapper._band_by_key.clear()
+    mapper._budget_boost.clear()
+    before = mapper.counters.faults
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        lines = mapper.map_records(top)
+    torch.cuda.synchronize()
+    res = {"reads": [len(r) for _, r in top], "paf_lines": len(lines),
+           "faults": mapper.counters.faults - before,
+           "errors": sorted(set(err.getvalue().splitlines()))[:4],
+           "wall_s": time.perf_counter() - t0}
+    got = {k: res[k] for k in C11_OUTCOME}
+    check(got == C11_OUTCOME, f"ROADMAP C11: the 98,304 bucket's reads gave "
+                              f"{got}, not {C11_OUTCOME}; update C11 and "
+                              "C11_OUTCOME")
+    return res
+
+
+def ultralong_cigar(mapper, recs) -> dict:
+    """-c on ``recs`` through the strip path: the PAF lines, every CIGAR
+    against its line's extents, its score on the host against the
+    score-only mapper's score of the read (map_batch on the same reads,
+    before the mapper turns to -c)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline.mapper import MapperConfig
+    cfg = mapper.cfg
+    seqs = [s for _, s in recs]
+    mapper._band_by_key.clear()
+    score_only = mapper.map_batch(seqs)
+    mapper.cfg = MapperConfig(output_cigar=True)
+    mapper._band_by_key.clear()
+    mapper._budget_boost.clear()
+    try:
+        counters = reset_launches()
+        t0 = time.perf_counter()
+        lines = mapper.map_records(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(w, a) for k, (w, a) in counters.items()}
+        paths = dict(bd.align_scores_banded.path_launches)
+        mapper._band_by_key.clear()
+        mapped = mapper.map_batch(seqs)
+    finally:
+        mapper.cfg = cfg
+    check(mapper.counters.faults == 0, "100 kb -c: a batch raised")
+    check(launches["band_score"] == 0 and paths["strip"] >= 1
+          and launches["walk_parents"] >= 1,
+          f"100 kb -c: K4 did not run on strips ({paths}, {launches})")
+    check(len(lines) == len(recs), f"100 kb -c: {len(lines)} PAF lines")
+    reads = []
+    for line, m, s, seq in zip(lines, mapped, score_only, seqs):
+        f = line.split("\t")
+        cig = next(x[5:] for x in f if x.startswith("cg:Z:"))
+        span = cigar_spans(cig)
+        q, t = mapper._region_strings(seq, m.q_begin, m.q_end, m.t_begin,
+                                      m.t_end, m.is_fwd)
+        host = cigar_score(cig, q, t, m.target_begin or 0, mapper.cfg.match,
+                           mapper.cfg.mismatch, mapper.cfg.gap)
+        ok = (m.mapped and s.mapped and m.cigar == cig
+              and span["M"] + span["D"] == int(f[3]) - int(f[2])
+              and span["M"] + span["I"] == int(f[8]) - int(f[7])
+              and host == m.score == s.score)
+        check(ok, f"100 kb -c: read {f[0]}'s CIGAR does not span its PAF "
+                  f"extents or score its score-only score ({span}, "
+                  f"{f[2:4]}, {f[7:9]}, host {host}, -c {m.score}, "
+                  f"score-only {s.score})")
+        reads.append({"read": f[0], "ops": span, "score": host})
+    return {"reads": reads, "wall_s": wall,
+            "reads_per_s_map": len(recs) / wall, "launches": launches,
+            "band_path_launches": paths}
+
+
+def pairs_100k(rng, dev, B: int = N_ULTRA_READS) -> list:
+    """The shape 100 kb reads give K2 in their realign pass: B reads of
+    ~96-100 kb against regions 3,000 bases longer, (B, n) = (8, 100000),
+    m = 104000; W = 65,536."""
+    n, m = ULTRA_LEN, ULTRA_LEN + 4000
+    qa = np.zeros((B, n), np.uint8)
+    ta = np.zeros((B, m), np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        ln = int(rng.integers(96000, 100001))
+        tgt = sim.random_genome(ln + 3000, rng)
+        qry = sim.mutate_read(tgt[:ln], rng)[:n]
+        qa[b, :len(qry)], ql[b] = qry, len(qry)
+        ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
+    return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+
+
+def phase_strip_trial(dev) -> dict:
+    """Phase 1u (--strip-trial): K2 / K4 on strips against the scratch
+    kernel (the kernel table's shape, W = 32,896, B = 32, n = 4,096, and
+    the 100 kb reads' realign shape, W = 65,536, B = 8; K4 at its table
+    shape and at one 100 kb read, B = 1) and against the cluster path at
+    its 50 kb shape (W = 25,088, B = 11, strips forced), every strip width
+    at the table's shape and at 1, 2, 4, 6, 8 and 12 reads of 100 kb (K4
+    at one), the bound of each row and the integer
+    instructions of the strip kernel's interior pair loop per cell; every
+    pair of outputs must be equal."""
+    import sass_census as sass
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import band as bd
+    sc = (1, -1, -1)
+    rows = []
+    card = bd.strip_card(dev)
+
+    def strip_widths(out, name, pairs, W, parents):
+        """The call at every strip width whose strips of a read the card
+        holds at once, each in as few launches as fit, against the planned
+        width's output: ms and launches by width into ``out[name]``."""
+        def run():
+            return bd.align_scores_banded(*pairs, *sc, band=W, mode=0,
+                                          dash_free=True,
+                                          want_parents=parents)
+        m_eff = bd.band_shapes(pairs[0].shape[1], pairs[2].shape[1], W)[2]
+        err_fn = (parents_err(pairs[1], pairs[3], m_eff) if parents
+                  else max_abs_err)
+        want = run()
+        res = {"planned": bd.band_plan(W, pairs[0].shape[0], parents,
+                                       card).strip}
+        for S in bd.STRIP_WIDTHS:
+            if card.held(S) < -(-W // S):
+                continue
+            with band_plan_as(strip_width(S)):
+                check(err_fn(run(), want) == 0, f"{name}: strips of {S} "
+                                                "differ")
+                plan = bd.band_plan(W, pairs[0].shape[0], parents, card)
+                res[S] = {"ms": cuda_ms(run, 2), "launches": -(-pairs[0]
+                          .shape[0] // plan.reads_per_launch)}
+        out[name] = res
+        del want
+        torch.cuda.empty_cache()
+
+    def row_of(name, pairs, W, parents, other, reps=1, extra=None):
+        """The planned call against the same call under ``other`` (a
+        band_plan factory), both timed; equal outputs."""
+        q, ql, t, tl = pairs
+
+        def run():
+            return bd.align_scores_banded(q, ql, t, tl, *sc, band=W, mode=0,
+                                          dash_free=True,
+                                          want_parents=parents)
+        m_eff = bd.band_shapes(q.shape[1], t.shape[1], W)[2]
+        err_fn = parents_err(ql, tl, m_eff) if parents else max_abs_err
+        got = run()
+        with band_plan_as(other):
+            err = err_fn(got, run())
+            check(err == 0, f"{name}: outputs differ")
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(run, reps)
+        with band_plan_as(other):
+            other_ms = cuda_ms(run, 1)
+        row = {"call": name, "ms": ms, "other_ms": other_ms,
+               "ms_again": cuda_ms(run, reps), "max_abs_err": err,
+               **band_work(q, ql, t, tl, W, parents),
+               **dataclasses.asdict(bd.band_plan(W, q.shape[0], parents,
+                                                 card))}
+        row["bound_ms"], row["bound_by"] = bound(
+            row, NEEDED_OPS["band_parents" if parents else "band_score"])
+        row["time_over_bound"] = row["ms"] / row["bound_ms"]
+        row.update(extra or {})
+        rows.append(row)
+        emit({"phase": "1u", "row": row})
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(1)
+    q, ql, t, tl = pair_inputs(rng, 32, 4096, 6144, dev)
+    table = [q, ql, t, tl]
+    row_of("K2 strips vs scratch W=32896 B=32 n=4096", table, 32896, False,
+           scratch_past_cluster, reps=3)
+    widths = {"card": dataclasses.asdict(card)}
+    strip_widths(widths, "K2 W=32896 B=32", table, 32896, False)
+    row_of("K4 strips vs scratch W=32896 B=16 n=4096",
+           [x[:16].contiguous() for x in table], 32896, True,
+           scratch_past_cluster)
+    del q, ql, t, tl, table
+    torch.cuda.empty_cache()
+    pairs = pairs_50k(np.random.default_rng(5), dev)
+    row_of("K2 cluster (planned) vs strips W=25088 B=11 n=50000", pairs,
+           25088, False, strip_always, reps=2)
+    row_of("K4 cluster (planned) vs strips W=25088 B=11 n=50000", pairs,
+           25088, True, strip_always)
+    del pairs
+    torch.cuda.empty_cache()
+    # 12 reads; the first 8 are the 8 of the rows below.
+    pairs = pairs_100k(np.random.default_rng(6), dev, 12)
+    for B in (1, 2, 4, 6, 8, 12):
+        strip_widths(widths, f"K2 W=65536 B={B}",
+                     [x[:B].contiguous() for x in pairs], 65536, False)
+    strip_widths(widths, "K4 W=65536 B=1",
+                 [x[:1].contiguous() for x in pairs], 65536, True)
+    emit({"phase": "1u", "strip_width_ms": widths})
+    pairs = [x[:N_ULTRA_READS].contiguous() for x in pairs]
+    row_of("K2 strips vs scratch W=65536 B=8 n=100000", pairs, 65536, False,
+           scratch_past_cluster)
+    row_of("K4 strips vs scratch W=65536 B=1 n=100000",
+           [x[:1].contiguous() for x in pairs], 65536, True,
+           scratch_past_cluster)
+    del pairs
+    torch.cuda.empty_cache()
+    listing = build.sass()
+    issued = {f"{'K4' if p else 'K2'} W={W} B={B}": sass.band_interior_loop(
+        listing, sass.plan_needle(bd.band_plan(W, B, p), p), 8)[
+            "int_per_cell"] for p, W, B in ((False, 32896, 32),
+                                            (True, 32896, 16),
+                                            (False, 65536, 8))}
+    return {"phase": "1u", "rows": rows, "strip_width_ms": widths,
+            "int_ops_per_cell": issued}
 
 
 def phase_repeat_and_roofline(dev) -> dict:
@@ -2429,8 +2936,8 @@ def device_time(prof):
 
 # Kernel function names of csrc/, as a profiler names their launches.
 PORT_KERNELS = ("lis_chain_kernel", "band_reg_kernel", "band_scratch_kernel",
-                "full_score_kernel", "walk_parents_kernel",
-                "int32_probe_kernel")
+                "band_strip_kernel", "full_score_kernel",
+                "walk_parents_kernel", "int32_probe_kernel")
 
 
 def phase_profile(genome: str, recs) -> dict:
@@ -2549,12 +3056,14 @@ def profile_cell(cell: str, genome: str, recs, cfg) -> dict:
 def main() -> int:
     if "--process-worker" in sys.argv[1:]:
         return process_worker(sys.argv[1:])
+    started = time.perf_counter()
     profile_map = "--profile-map" in sys.argv[1:]
     lpt_trial = "--lpt-trial" in sys.argv[1:]
     walk_trial = "--walk-trial" in sys.argv[1:]
     chain_profile = "--chain-profile" in sys.argv[1:]
     chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
     full_trial = "--full-trial" in sys.argv[1:]
+    strip_trial = "--strip-trial" in sys.argv[1:]
     split_trial = "--split-trial" in sys.argv[1:]
     shard_trial = "--shard-trial" in sys.argv[1:]
     process_trial = "--process-trial" in sys.argv[1:]
@@ -2609,6 +3118,9 @@ def main() -> int:
     if full_trial:
         emit(phase_full_trial(dev))
         return 0
+    if strip_trial:
+        emit(phase_strip_trial(dev))
+        return 0
     if split_trial:
         emit(phase_split_trial())
         return 0
@@ -2653,6 +3165,8 @@ def main() -> int:
     gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
     p2l = phase_longread(dev)
     emit(p2l)
+    p2u = phase_ultralong(dev)
+    emit(p2u)
     p2r = phase_repeat_and_roofline(dev)
     emit(p2r)
     torch.cuda.empty_cache()
@@ -2661,10 +3175,15 @@ def main() -> int:
         emit(phase_profile(genome, recs))
 
     # Launches on each kernel's own path: the score-only run (phase 2) for
-    # K1-K3, the 50 kb run (phase 2L) for K2's cluster path, the -c runs
-    # (phase 2c) for K4 and K5, the roofline (phase 2r) for K6.
+    # K1-K3, the 50 kb run (phase 2L) for K2's cluster path, the 100 kb
+    # runs (phase 2U: the planned fresh pass, the -c run) for K2's and K4's
+    # strip path, the -c runs (phase 2c) for K4 and K5, the roofline (phase
+    # 2r) for K6.
     path_launches = dict(p2["launches"])
     path_launches["band_score_cluster"] = p2l["launches"]["band_score_cluster"]
+    path_launches["band_score_strip"] = p2u["launches"]["band_score_strip"]
+    path_launches["band_parents_strip"] = p2u["cigar"]["launches"][
+        "band_parents_strip"]
     for name in ("band_parents", "walk_parents"):
         path_launches[name] = p2c["launches"][name]
     path_launches["int32_probe"] = p2r["launches"]["int32_probe"]
@@ -2700,7 +3219,9 @@ def main() -> int:
                       "shard_launches": p2x["launches"][name],
                       "process_launches": p2p["launches"][name],
                       "staged_launches": p2s["launches"][name],
-                      "repeat_launches": p2r["launches"][name]})
+                      "repeat_launches": p2r["launches"][name],
+                      "ultralong_launches": p2u["launches"][name]})
+    emit({"phase": "end", "wall_s": time.perf_counter() - started})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -172,10 +172,20 @@ def band_reg_needle(parents: bool, dash_free: bool, mode: int, lpt: int,
             f"Li{mode}ELi{lpt}ELb{int(multi)}ELb{int(cluster)}E")
 
 
+def band_strip_needle(parents: bool, dash_free: bool, mode: int) -> str:
+    """The part of a ``band_strip_kernel`` instantiation's mangled name
+    that tells it from the others (kParents, kDashFree, kMode)."""
+    return (f"band_strip_kernelILb{int(parents)}ELb{int(dash_free)}E"
+            f"Li{mode}E")
+
+
 def plan_needle(plan, parents: bool, dash_free: bool = True,
                 mode: int = 0) -> str:
-    """``band_reg_needle`` of the kernel that serves an ``ops/band.BandPlan``
-    on a register path."""
+    """The needle of the kernel that serves an ``ops/band.BandPlan`` on a
+    register path: ``band_reg_needle``, or ``band_strip_needle`` on the
+    strip path (the same pair loops inside its epochs)."""
+    if plan.path == "strip":
+        return band_strip_needle(parents, dash_free, mode)
     return band_reg_needle(parents, dash_free, mode, plan.lpt,
                            plan.path != "warp", plan.path == "cluster")
 

@@ -2,9 +2,9 @@
 
 ``ops/band.band_plan`` decides, from W alone, which kernel of
 csrc/band_score.cu serves a band (lanes in registers up to ``W_REG`` in one
-CTA, up to ``W_CLUSTER`` over the CTAs of a thread-block cluster, the
-scratch kernel above) and its launch shape; it is held here for every W a
-caller can ask for.  The register kernels lean on two facts of the
+CTA, up to ``W_CLUSTER`` over the CTAs of a thread-block cluster, up to
+``W_STRIP`` in strips on co-resident CTAs, the scratch kernel above) and
+its launch shape; it is held here for every W a caller can ask for.  The register kernels lean on two facts of the
 function itself, pinned on the port's plain version and on the JAX Pallas
 kernel in interpret mode (as ``tests/test_torch_band.py`` runs it), exact
 equality:
@@ -51,15 +51,20 @@ def test_band_plan_every_width(want_parents, B):
                 assert plan.reads_per_cta == 1
             assert (plan.cluster > 1) == (plan.path == "cluster")
         else:
-            assert plan.path == "scratch", W
-            assert plan.reads_per_cta == 1
-            state = 3 * W + (W // 4 if want_parents else 0)
-            # The diagonals live in shared memory or in global scratch,
-            # never both.
-            assert (plan.smem_bytes, plan.scratch_ints) in (
-                (4 * state, 0), (0, state)), W
-            assert (plan.scratch_ints == 0) == \
-                (4 * state <= build.SMEM_LIMIT)
+            assert plan.path == "strip", W
+            assert plan.reads_per_cta == 1 and plan.lpt == 8
+            assert plan.strip in tband.STRIP_WIDTHS and plan.cluster == 1
+            assert plan.strips == -(-W // plan.strip)
+            assert plan.threads_per_cta == plan.strip // 8 + 8
+            assert plan.scratch_ints == plan.strips * tband.STRIP_REC_INTS
+            assert plan.smem_bytes == tband.REG_SMEM_BYTES
+    # Past the strips' limit, the scratch kernel: its diagonals live in
+    # shared memory or in global scratch, never both.
+    for W in (tband.W_STRIP + 128, 2 * tband.W_STRIP):
+        plan = tband.band_plan(W, B, want_parents)
+        assert plan.path == "scratch" and plan.reads_per_cta == 1
+        state = 3 * W + (W // 4 if want_parents else 0)
+        assert (plan.smem_bytes, plan.scratch_ints) == (0, state), W
 
 
 def test_band_plan_switches_exactly_at_w_reg():
@@ -71,10 +76,14 @@ def test_band_plan_switches_exactly_at_w_reg():
                                parents).path == "cluster"
         assert tband.band_plan(tband.W_CLUSTER, 7, parents).path == "cluster"
         assert tband.band_plan(tband.W_CLUSTER + 128, 7,
-                               parents).path == "scratch"
-    # The path depends on W only; B moves nothing but the reads per CTA.
+                               parents).path == "strip"
+    # The path depends on W only; below the strips B moves nothing but the
+    # reads per CTA.
     for W in (128, 256, 512, 2432, 4096, 4224, 19968, 32768, 32896):
         plans = [tband.band_plan(W, B, False) for B in (1, 37, 256, 100000)]
+        assert len({p.path for p in plans}) == 1
+        if W > tband.W_CLUSTER:
+            continue
         assert len({(p.path, p.lpt, p.threads_per_read, p.smem_bytes,
                      p.scratch_ints, p.cluster) for p in plans}) == 1
     assert tband.band_plan(256, 100000, False).reads_per_cta > 1
@@ -112,6 +121,127 @@ def test_cluster_plan_tiles_the_band(want_parents):
     for W in (8192, 24576):
         assert W // 2 in [s for s, _ in tband.band_plan(W, 1, False)
                           .segments()]
+
+
+def test_strip_plan_boundaries():
+    """32,768 lanes take the cluster path, 32,896 strips, up to W_STRIP
+    (the widest band whose strips of one read are all resident on an H100
+    SXM at once); the scratch kernel only past it.  The kernel's halo
+    needs a last strip of at least STRIP_HALO lanes and an epoch that ends
+    on a parent byte."""
+    card = tband.H100_SXM
+    assert tband.W_STRIP == card.w_strip == 540672
+    assert all(card.held(S) * S == 540672 for S in tband.STRIP_WIDTHS)
+    assert tband.STRIP_EPOCH == 2 * tband.STRIP_HALO
+    assert tband.STRIP_EPOCH % 4 == 0 and tband.W_CLUSTER % \
+        tband.STRIP_EPOCH == 0
+    for parents in (False, True):
+        for B in (1, 8, 32):
+            assert tband.band_plan(32768, B, parents).path == "cluster"
+            assert tband.band_plan(32896, B, parents).path == "strip"
+            assert tband.band_plan(tband.W_STRIP, B, parents).path == \
+                "strip"
+            assert tband.band_plan(tband.W_STRIP + 128, B,
+                                   parents).path == "scratch"
+    for W in range(tband.W_CLUSTER + 128, 140000, 128 * 7):
+        plan = tband.band_plan(W, 3, False)
+        last = W - (plan.strips - 1) * plan.strip
+        assert tband.STRIP_HALO <= last <= plan.strip, W
+    # The strip kernel serves any multiple of 128 up to W_STRIP when
+    # called directly (the trial times it at the cluster path's 25,088).
+    plan = tband.strip_plan(25088, 11)
+    assert plan.strips == -(-25088 // plan.strip) and plan.cluster == 1
+    for W in (0, 100, tband.W_STRIP + 128):
+        with pytest.raises(ValueError):
+            tband.strip_plan(W, 1)
+
+
+@pytest.mark.parametrize("W,B,width,launches", [
+    (32896, 1, 1024, 1),     # 33 CTAs, one a SM
+    (65536, 1, 1024, 1),     # the -c chunk of a 100 kb read: 64 CTAs
+    (65536, 2, 1024, 1),     # 128 CTAs, one a SM
+    (65536, 4, 2048, 1),     # 128 CTAs of 2,048 lanes, one a SM
+    (65536, 8, 4096, 1),     # the 100 kb reads' score-only call
+    (65536, 12, 1024, 2),    # two launches of 6 reads, 3 CTAs a SM
+    (32896, 32, 1024, 2),    # the kernel table's row: 33 strips a read
+    (540672, 2, 4096, 2),    # the widest band: one read a launch
+])
+def test_strip_width_and_read_groups(W, B, width, launches):
+    """The strip width of least ``strip_cost`` on an H100 SXM: at every
+    shape here the width timed fastest (``chip_smoke.py --strip-trial`` on
+    an NVIDIA H100 80GB HBM3 at 700 W: at W = 65,536, 1 / 2 / 4 / 8 / 12
+    reads ran 47.60 / 47.54 / 56.73 / 79.15 / 156.06 ms at these widths
+    against 56.78 / 56.65 / 59.62 / 97.56 / 158.05 at the next best; at W
+    = 32,896, 32 reads, 10.86 against 14.55).  The reads then go in as few
+    cooperative launches as the card's CTAs allow, spread evenly, and
+    every launch's CTAs fit what the card holds."""
+    card = tband.H100_SXM
+    plan = tband.band_plan(W, B, False)
+    assert (plan.path, plan.strip) == ("strip", width)
+    groups = -(-B // plan.reads_per_launch)
+    assert groups == launches
+    assert plan.reads_per_launch * plan.strips <= card.held(width)
+    assert B - (groups - 1) * plan.reads_per_launch >= \
+        plan.reads_per_launch - groups
+    assert (plan.reads_per_launch + 1) * plan.strips > card.held(width) \
+        or -(-B // (plan.reads_per_launch + 1)) == groups
+    fits = [S for S in tband.STRIP_WIDTHS if card.held(S) >= -(-W // S)]
+    costs = {S: tband.strip_cost(W, B, S, card) for S in fits}
+    assert costs[width] == min(costs.values())
+    assert all(costs[S] > costs[width] for S in fits if S < width)
+    assert plan.threads_per_cta <= 1024 and plan.threads_per_cta % 8 == 0
+
+
+def test_strip_cost_counts_the_busiest_sm_of_each_launch():
+    """strip_cost: launches x the CTAs on the busiest SM of a launch x the
+    lanes of a CTA (owned and halo)."""
+    card = tband.H100_SXM
+    # 8 reads of 64 strips of 1,024: one launch of 512 CTAs, 4 a SM.
+    assert tband.strip_cost(65536, 8, 1024, card) == 1 * 4 * (1024 + 64)
+    # 12 reads: 8 a launch at most, so two launches of 6 (384 CTAs, 3 a SM).
+    assert tband.strip_cost(65536, 12, 1024, card) == 2 * 3 * (1024 + 64)
+    # 32 reads of 9 strips of 4,096: 14 a launch, three launches of 11.
+    assert tband.strip_cost(32896, 32, 4096, card) == 3 * 1 * (4096 + 64)
+    # A forced width is taken as asked, in as few launches as it allows.
+    plan = tband.strip_plan(65536, 8, card, width=2048)
+    assert (plan.strip, plan.strips, plan.reads_per_launch) == (2048, 32, 8)
+    with pytest.raises(ValueError):
+        tband.strip_plan(65536, 8, tband.StripCard(16, (2, 1, 1)),
+                         width=1024)
+
+
+# Cards of other shapes: an H100 PCIe (114 SMs), a card whose strip
+# kernels hold fewer CTAs a SM, a slice of 16 SMs.
+CARDS = [tband.H100_SXM, tband.StripCard(114, (4, 2, 1)),
+         tband.StripCard(132, (3, 1, 1)), tband.StripCard(16, (2, 1, 1))]
+
+
+@pytest.mark.parametrize("card", CARDS, ids=lambda c: f"{c.sms}x{c.per_sm}")
+def test_strip_plan_fits_the_card(card):
+    """On any card the strip path takes the bands up to the card's own
+    widest strip band (the scratch kernel past it), every strip width the
+    plan picks holds a read's strips at once, and every cooperative launch
+    fits what the card holds, its reads spread evenly over the fewest
+    launches."""
+    assert card.w_strip == max(card.held(S) * S for S in tband.STRIP_WIDTHS)
+    for W in sorted({32896, 49152, 65536, 131072, 200064,
+                     card.w_strip - 128, card.w_strip}):
+        if not tband.W_CLUSTER < W <= card.w_strip:
+            continue
+        for B in (1, 2, 8, 37, 300):
+            plan = tband.band_plan(W, B, False, card)
+            assert plan.path == "strip", (W, B)
+            assert plan.strips == -(-W // plan.strip)
+            assert plan.strips <= card.held(plan.strip)
+            per = card.held(plan.strip) // plan.strips
+            assert plan.reads_per_launch <= per, (W, B)
+            launches = -(-B // plan.reads_per_launch)
+            assert launches == -(-B // per), (W, B)
+            assert plan.scratch_ints == plan.strips * card.rec_ints
+    assert tband.band_plan(card.w_strip + 128, 1, True,
+                           card).path == "scratch"
+    with pytest.raises(ValueError):
+        tband.strip_plan(card.w_strip + 128, 1, card)
 
 
 @pytest.mark.parametrize("W", [0, 100, 130, -128])

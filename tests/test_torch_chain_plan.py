@@ -76,6 +76,30 @@ def test_chain_plan_rejects_budgets_outside_the_packed_range():
             tchain.chain_plan(N)
 
 
+def test_doubled_budget_of_the_98304_bucket_is_refused_by_both_packages():
+    """The budget behind a known fault on reads of ~98 kb: both mappers put
+    a read of 98,096 bases in the 98,304 length bucket with a base match
+    budget of 36,864 (~3L/8), which an overflow retry doubles to 73,728;
+    both packages' chain kernels refuse that budget (the JAX Pallas
+    kernel when it is traced, the port's plan), so the read's batch
+    faults in either."""
+    from bioinfo1_tpu_torch.pipeline import mapper as tmapper
+    cfg = tmapper.MapperConfig()
+    floor = cfg.k + cfg.w - 1
+    assert jmapper.MapperConfig().k + jmapper.MapperConfig().w - 1 == floor
+    caps = {m._bucket_cap(98096, floor) for m in (jmapper, tmapper)}
+    assert caps == {98304}
+    base = -(-3 * 98304 // (8 * 128)) * 128
+    assert base == 36864 and 2 * base == 73728
+    f = jax.numpy.zeros((1, 2 * base), jax.numpy.int32)
+    with pytest.raises(ValueError, match="packed-index range"):
+        jpc.lis_chain(f, f, jax.numpy.zeros((1,), jax.numpy.int32),
+                      interpret=True)
+    with pytest.raises(ValueError, match="outside"):
+        tchain.chain_plan(2 * base)
+    assert tchain.chain_plan(base).path == "state"
+
+
 # ---- the two-level replay ---------------------------------------------------
 
 def _qualifies(f, r, j, i):

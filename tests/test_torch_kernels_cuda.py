@@ -194,7 +194,7 @@ def _pairs(rng, B, n, m, dev):
 
 
 # Every path of band_plan: one warp, several warps, a cluster (W = 19,968:
-# 6 CTAs of 416 threads), the scratch kernel (W > 32,768).
+# 6 CTAs of 416 threads), strips (W = 32,896: 9 strips of 4,096 lanes).
 BANDS = [128, 256, 512, 1024, 4096, 19968, 32896]
 
 
@@ -374,14 +374,215 @@ def test_band_cluster_refused_launch_raises(dev, monkeypatch):
     """A cluster the launcher refuses (16 CTAs: past the portable size)
     raises in the wrapper; nothing falls back to another path."""
     plan = bd.band_plan(32768, 1, False)
-    monkeypatch.setattr(bd, "band_plan", lambda W, B, p: dataclasses.replace(
-        plan, cluster=16, threads_per_cta=256))
+    monkeypatch.setattr(bd, "band_plan",
+                        lambda W, B, p, card=None: dataclasses.replace(
+                            plan, cluster=16, threads_per_cta=256))
     q, ql, t, tl = _crossing_pairs(np.random.default_rng(1), 2, 600, 800, 0,
                                    dev)
     before = bd.align_scores_banded.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=32768)
     assert bd.align_scores_banded.launches == before
+
+
+def _parent_rows_equal(got, want, ql, tl, W, n, m):
+    """Every parent byte of every row up to each read's last diagonal (the
+    rows the kernel writes): the cells outside the matrix too."""
+    _, _, m_eff, n_steps = bd.band_shapes(n, m, W)
+    last = (ql.long() + tl.long().clamp(max=m_eff)).clamp(max=n_steps + 1)
+    for b, d in enumerate(last.tolist()):
+        if d >= 2:
+            rows = (d - 2) // 4 + 1
+            assert torch.equal(got[:rows, b], want[:rows, b]), b
+
+
+def _strip_case(q, ql, t, tl, band, mode, dash_free, scoring, launches=None):
+    """K2 and K4 on the strip path, as the card plans it, against the plain
+    version: scores, goals, parents on the cells they are defined on and
+    every byte of the rows the kernel writes; one strip call each, no
+    other path; ``launches`` cooperative launches a call."""
+    plan = bd.band_plan(band, q.shape[0], True, bd.strip_card(q.device))
+    assert plan.path == "strip"
+    if launches is not None:
+        assert -(-q.shape[0] // plan.reads_per_launch) == launches
+    m_eff = bd.band_shapes(q.shape[1], t.shape[1], band)[2]
+    args = (q, ql, t, tl, *scoring)
+    kw = dict(band=band, mode=mode, dash_free=dash_free)
+    before = dict(bd.align_scores_banded.path_launches)
+    _same(bd.align_scores_banded(*args, **kw),
+          bd.align_scores_banded_plain(*args, **kw))
+    got = bd.align_scores_banded(*args, **kw, want_parents=True)
+    want = bd.align_scores_banded_plain(*args, **kw, want_parents=True)
+    after = bd.align_scores_banded.path_launches
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(bd.PATHS, 0), strip=2)
+    for f in ("score", "goal_i", "goal_j"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(bd.parent_cells(got.parents, ql, tl, m_eff),
+                       bd.parent_cells(want.parents, ql, tl, m_eff))
+    _parent_rows_equal(got.parents, want.parents, ql, tl, band, q.shape[1],
+                       t.shape[1])
+    return got
+
+
+# Strip widths on an H100 SXM (ops/band.strip_plan): 6 reads take strips
+# of 2,048 lanes at W = 32,896 (17 strips, the last of 128) and of 1,024
+# at 49,152 and 65,536 (48 and 64, 3 CTAs a SM); the main diagonal
+# (W / 2) is a strip edge at 49,152 and 65,536.
+STRIP_BANDS = [32896, 49152, 65536]
+
+
+@pytest.mark.parametrize("band", STRIP_BANDS)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_strip_kernels_match_plain(dev, mode, band):
+    """Paths that wander ~75-125 lanes over the main diagonal, n <= 1,024,
+    both variants, K2 and K4."""
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(band + mode), 6,
+                                   1000, 1400, 0, dev)
+    for dash_free in (False, True):
+        _strip_case(q, ql, t, tl, band, mode, dash_free, (1, -1, -1), 1)
+
+
+def test_band_strip_kernels_in_several_read_groups(dev):
+    """B = 30 at W = 32,896: more strips than the card holds at once, so
+    several cooperative launches, their reads spread evenly."""
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(41), 30, 700, 1000,
+                                   200, dev)
+    plan = bd.band_plan(32896, 30, False, bd.strip_card(dev))
+    launches = -(-30 // plan.reads_per_launch)
+    assert launches > 1 and 30 % plan.reads_per_launch == 0
+    for mode in (0, 1, 2):
+        _strip_case(q, ql, t, tl, 32896, mode, True, (1, -1, -1), launches)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_strip_kernels_one_read(dev, mode):
+    """B = 1, the -c chunk of a 100 kb read: 64 strips of 1,024 lanes, a
+    lead of 2,100 bases puts the path across the edge at lane 33,792."""
+    assert bd.band_plan(65536, 1, True, bd.strip_card(dev)).strip == 1024
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(60 + mode), 1,
+                                   1000, 3500, 2100, dev)
+    for dash_free in (False, True):
+        _strip_case(q, ql, t, tl, 65536, mode, dash_free, (1, -1, -1), 1)
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1)])
+def test_band_strip_kernels_on_tie_heavy_pairs(dev, scoring, B):
+    """Local goal ties and semiGlobal rim ties on the main diagonal, which
+    at W = 65,536 is a strip edge (strips of 1,024 lanes at B = 1, of
+    4,096 in five launches at B = 37): the strips' trackers and the last
+    CTA's merge must pick what the per-diagonal rules pick."""
+    rng = np.random.default_rng(300 + B)
+    for dash in (False, True):
+        q, ql, t, tl = _tie_pairs(rng, B, 500, 800, dash, dev)
+        for mode in (0, 1, 2):
+            _strip_case(q, ql, t, tl, 65536, mode, not dash, scoring,
+                        1 if B == 1 else 5)
+
+
+def test_band_strip_refused_launch_raises(dev, monkeypatch):
+    """A launch the card cannot hold at once (40 reads of 16 strips in one
+    cooperative launch) raises in the wrapper; nothing falls back."""
+    plan = bd.band_plan(65536, 40, False, bd.strip_card(dev))
+    monkeypatch.setattr(bd, "band_plan",
+                        lambda W, B, p, card=None: dataclasses.replace(
+                            plan, reads_per_launch=40))
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(2), 40, 600, 800, 0,
+                                   dev)
+    before = dict(bd.align_scores_banded.path_launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=65536)
+    assert bd.align_scores_banded.path_launches == before
+    # The refusal is not left behind for the next launch to report.
+    monkeypatch.undo()
+    _same(bd.align_scores_banded(q[:2], ql[:2], t[:2], tl[:2], 1, -1, -1,
+                                 band=65536),
+          bd.align_scores_banded_plain(q[:2], ql[:2], t[:2], tl[:2], 1, -1,
+                                       -1, band=65536))
+
+
+def test_band_strip_occupancy_meets_the_plan(dev):
+    """ops/band.strip_card reads the card: its SM count, at each strip
+    width the least occupancy of every strip kernel (K2 and K4, every
+    mode, both variants; at least one CTA a SM) and the library's record
+    size, which ops/band's constant must match.  Every plan the card makes
+    fits it: a launch's CTAs at most what the card holds at once."""
+    import ctypes
+    from bioinfo1_tpu_torch.kernels import build
+    lib = build.library()
+    card = bd.strip_card(dev)
+    assert bd.strip_card(dev) is card                    # asked once
+    props = torch.cuda.get_device_properties(dev)
+    assert card.sms == props.multi_processor_count
+    assert card.rec_ints == bd.STRIP_REC_INTS
+    for S, per_sm in zip(bd.STRIP_WIDTHS, card.per_sm):
+        threads = (S + 2 * bd.STRIP_HALO) // 8
+        held = []
+        for parents in (0, 1):
+            for mode in (0, 1, 2):
+                for dash_free in (0, 1):
+                    n = ctypes.c_int(0)
+                    assert lib.bioinfo1_band_strip_occupancy(
+                        parents, mode, dash_free, threads,
+                        ctypes.byref(n)) == 0
+                    held.append(n.value)
+        assert per_sm == min(held) >= 1, S
+    for W in (32896, 49152, 65536, 200064, card.w_strip):
+        for B in (1, 2, 8, 37):
+            plan = bd.band_plan(W, B, False, card)
+            assert plan.path == "strip"
+            assert plan.reads_per_launch * plan.strips <= card.held(
+                plan.strip), (W, B)
+    assert bd.band_plan(card.w_strip + 128, 1, False, card).path == \
+        "scratch"
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_scratch_kernel_matches_plain(dev, monkeypatch, mode):
+    """The scratch kernel, which band_plan keeps for bands past W_STRIP:
+    at W = 32,896 through ops/band.scratch_plan (as the smoke's control
+    runs it), K2 and K4, both variants."""
+    monkeypatch.setattr(bd, "band_plan",
+                        lambda W, B, p, card=None: bd.scratch_plan(W, p))
+    q, ql, t, tl = _pairs(np.random.default_rng(70 + mode), 12, 600, 900,
+                          dev)
+    m_eff = bd.band_shapes(600, 900, 32896)[2]
+    for dash_free in (False, True):
+        kw = dict(band=32896, mode=mode, dash_free=dash_free)
+        args = (q, ql, t, tl, 1, -1, -1)
+        _same(bd.align_scores_banded(*args, **kw),
+              bd.align_scores_banded_plain(*args, **kw))
+        got = bd.align_scores_banded(*args, **kw, want_parents=True)
+        want = bd.align_scores_banded_plain(*args, **kw, want_parents=True)
+        for f in ("score", "goal_i", "goal_j"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(bd.parent_cells(got.parents, ql, tl, m_eff),
+                           bd.parent_cells(want.parents, ql, tl, m_eff))
+
+
+def test_band_scratch_path_past_the_strips(dev):
+    """W = the card's widest strip band + 128 (540,800 lanes on an H100
+    SXM): too wide for one read's strips to be resident at once, so
+    band_plan gives the scratch kernel; one read, K2 and K4 against the
+    plain version."""
+    W = bd.strip_card(dev).w_strip + 128
+    assert bd.band_plan(W, 1, True, bd.strip_card(dev)).path == "scratch"
+    q, ql, t, tl = _pairs(np.random.default_rng(80), 1, 300, 400, dev)
+    q, ql, t, tl = (x[:1].contiguous() for x in (q, ql, t, tl))
+    ql[0], tl[0] = 300, 400
+    before = bd.align_scores_banded.path_launches["scratch"]
+    _same(bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=W, mode=2),
+          bd.align_scores_banded_plain(q, ql, t, tl, 1, -1, -1, band=W,
+                                       mode=2))
+    got = bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=W, mode=0,
+                                 want_parents=True)
+    want = bd.align_scores_banded_plain(q, ql, t, tl, 1, -1, -1, band=W,
+                                        mode=0, want_parents=True)
+    assert bd.align_scores_banded.path_launches["scratch"] == before + 2
+    for f in ("score", "goal_i", "goal_j"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    _parent_rows_equal(got.parents, want.parents, ql, tl, W, 300, 400)
 
 
 def test_band_kernel_ragged_last_cta(dev):
@@ -439,7 +640,7 @@ def _walk_case(par, gi, gj, score, q, t, scoring, mode):
 
 
 # The register paths (128, 256, 4,096), the cluster path (19,968: 6 CTAs
-# of 416 threads) and the scratch path (32,896).
+# of 416 threads) and the strip path (32,896).
 WALK_BANDS = [128, 256, 4096, 19968, 32896]
 
 

@@ -229,3 +229,65 @@ def test_smoke_imports_no_jax_and_fails_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "RC 1 BAD []", proc.stdout
+
+
+def test_band_plan_as_swaps_the_plan_and_restores_it(smoke):
+    """Phase 2U's control (scratch past W_CLUSTER) and the strip trial's
+    plan (strips for every band) replace ops/band.band_plan for their
+    body only; below W_CLUSTER the control keeps the real plan."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    planned = bd.band_plan
+    with smoke.band_plan_as(smoke.scratch_past_cluster):
+        assert bd.band_plan(65536, 8, False).path == "scratch"
+        assert bd.band_plan(32896, 1, True).path == "scratch"
+        assert bd.band_plan(25088, 11, False).path == "cluster"
+        assert bd.band_plan(256, 11, False).path == "warp"
+    assert bd.band_plan is planned
+    with pytest.raises(KeyError):
+        with smoke.band_plan_as(smoke.strip_always):
+            plan = bd.band_plan(25088, 11, False)
+            assert plan.path == "strip"
+            assert plan.strips == -(-25088 // plan.strip)
+            raise KeyError
+    assert bd.band_plan is planned
+    assert bd.band_plan(65536, 8, False).path == "strip"
+    # The trial's fixed widths: strips of S lanes where the plan takes
+    # strips, the real plan elsewhere.
+    for S in bd.STRIP_WIDTHS:
+        with smoke.band_plan_as(smoke.strip_width(S)):
+            assert bd.band_plan(65536, 8, False, bd.H100_SXM).strip == S
+            assert bd.band_plan(25088, 11, False).path == "cluster"
+    assert bd.band_plan is planned
+
+
+def test_cigar_score_rescores_the_mappers_cigars(smoke):
+    """Phase 2U's -c check on the CPU: every CIGAR of a -c run spans its PAF
+    line's extents (M + D query bases, M + I target bases) and
+    ``cigar_score`` over the mapper's region strings gives the read's
+    score, which is the score-only run's."""
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    genome = simulate.random_genome(60_000, np.random.default_rng(11))
+    recs = simulate.simulate_reads(genome, (2000, 3000, 2500),
+                                   np.random.default_rng(12))
+    ref = genome.tobytes().decode("latin1")
+    seqs = [s for _, s in recs]
+    cpu = torch.device("cpu")
+    scores = [m.score for m in Mapper([("g", ref)], MapperConfig(),
+                                      device=cpu).map_batch(seqs)]
+    mapper = Mapper([("g", ref)], MapperConfig(output_cigar=True),
+                    device=cpu)
+    lines = mapper.map_records(recs)
+    mapped = mapper.map_batch(seqs)
+    assert len(lines) == len(recs)
+    for line, m, seq, want in zip(lines, mapped, seqs, scores):
+        f = line.split("\t")
+        cig = next(x[5:] for x in f if x.startswith("cg:Z:"))
+        span = smoke.cigar_spans(cig)
+        assert m.cigar == cig and span["I"] + span["D"] > 0
+        assert span["M"] + span["D"] == int(f[3]) - int(f[2])
+        assert span["M"] + span["I"] == int(f[8]) - int(f[7])
+        q, t = mapper._region_strings(seq, m.q_begin, m.q_end, m.t_begin,
+                                      m.t_end, m.is_fwd)
+        cfg = mapper.cfg
+        assert smoke.cigar_score(cig, q, t, m.target_begin or 0, cfg.match,
+                                 cfg.mismatch, cfg.gap) == m.score == want
