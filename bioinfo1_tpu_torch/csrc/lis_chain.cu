@@ -14,8 +14,10 @@
 // bits, so one max picks the highest lis and, among ties, the smallest j;
 // max is associative, so the order survives splitting the predecessors
 // over the two phases below.  The predecessor is ~best & 0xFFFF, which is
-// 0xFFFF ("none") for best = 0; it is kept as a uint16 (the wrapper
-// requires N <= 65535, so j <= 65534).
+// 0xFFFF ("none") for best = 0; it is kept as a uint16 (these paths take
+// N <= 65535, so j <= 65534).  The wide path (N up to kWideMaxN) packs
+// (lis << 32) | (0xFFFFFFFF - j) in 64 bits, in the same order, and keeps
+// prev as a uint32 (0xFFFFFFFF: none).
 //
 // What bounds it on the card: the DP is a true dependency from match to
 // match, so the time is the serial chain, not the pair tests.  The first
@@ -50,8 +52,18 @@
 //  kShared   f, r, the packed states and prev in shared memory;
 //  kState    f and r read from the inputs (__ldg; L1 and L2 serve the
 //            rereads), states and prev in shared memory;
-//  kScratch  states and prev in global scratch rows of n_pad entries.
-// q_lo and the chunk bounds are in shared memory on every path.
+//  kScratch  states and prev in global scratch rows of n_pad entries;
+//  kWide     64-bit states and 32-bit prev in global scratch rows (N >
+//            65535: ops/chain.chain_plan), the chunk bounds in the states'
+//            row until the DP overwrites it.  Its serial scan reduces a
+//            32-bit key, (lis << 5) | (31 - lane): lanes are in j order, so
+//            one max still picks the highest lis and the smallest j among
+//            ties; the chain end is a per-lane max, reduced once at the end.
+// q_lo is in shared memory on every path (a uint16 chunk index, so the
+// wide path ends at 65,536 chunks: kWideMaxN), and so are the chunk bounds
+// on the other three.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -62,7 +74,16 @@ constexpr int kC = 32;              // matches per chunk: one per lane
 constexpr int kMaxWarps = 16;
 constexpr unsigned kJMask = 0xFFFFu;
 constexpr unsigned kFull = 0xffffffffu;
-enum Path { kShared = 0, kState = 1, kScratch = 2 };
+constexpr unsigned kWideNone = 0xFFFFFFFFu;   // the wide path's "no prev"
+constexpr int kWideMaxN = 1 << 21;            // 65,536 chunks of kC
+enum Path { kShared = 0, kState = 1, kScratch = 2, kWide = 3 };
+
+// A match's packed state and its stored predecessor, by path.
+template <int kPath>
+using StateT =
+    std::conditional_t<kPath == kWide, unsigned long long, unsigned>;
+template <int kPath>
+using PrevT = std::conditional_t<kPath == kWide, unsigned, unsigned short>;
 
 __host__ __device__ inline int pad_n(int N) { return (N + kC - 1) / kC * kC; }
 // uint16 slots of q_lo, one per chunk: whole 16-byte groups, so what
@@ -72,13 +93,14 @@ __host__ __device__ inline int qlo_slots(int N) {
 }
 
 // Dynamic shared bytes of a path (ops/chain.chain_plan mirrors this): q_lo,
-// then f, r, states and prev (kShared), states and prev (kState), or the
+// then f, r, states and prev (kShared), states and prev (kState), the
 // chunk bounds (kScratch; on the other paths they sit in the states' space
-// until the DP starts).
+// until the DP starts), or nothing more (kWide).
 size_t smem_bytes(int path, int N) {
   const size_t n_pad = pad_n(N), head = 2 * size_t(qlo_slots(N));
   if (path == kShared) return head + 14 * n_pad;
   if (path == kState) return head + 6 * n_pad;
+  if (path == kWide) return head;
   return head + 8 * (n_pad / kC);
 }
 
@@ -123,9 +145,9 @@ __device__ __forceinline__ unsigned prev_at(const unsigned short* prev,
   return v;
 }
 
-__device__ __forceinline__ unsigned take(unsigned best, unsigned fj,
-                                         unsigned rj, unsigned pj,
-                                         unsigned fi1, unsigned ri1) {
+template <typename S>
+__device__ __forceinline__ S take(S best, unsigned fj, unsigned rj, S pj,
+                                  unsigned fi1, unsigned ri1) {
   return qualifies(fj, rj, fi1, ri1) && pj > best ? pj : best;
 }
 
@@ -133,11 +155,14 @@ template <int kPath>
 __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
                                  const int* __restrict__ r_pos,
                                  const int* __restrict__ count, int R, int N,
-                                 unsigned* __restrict__ packed_g,
-                                 unsigned short* __restrict__ prev_g,
+                                 StateT<kPath>* __restrict__ packed_g,
+                                 PrevT<kPath>* __restrict__ prev_g,
                                  int* __restrict__ out) {
+  using State = StateT<kPath>;
+  using Prev = PrevT<kPath>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned part[kMaxWarps][kC], link_part[kMaxWarps][kC];
+  __shared__ State part[kMaxWarps][kC];
+  __shared__ unsigned link_part[kMaxWarps][kC];
   const int row = blockIdx.x;
 #ifdef BIOINFO1_CHAIN_PROFILE
   const bool profiled = blockIdx.x == 0 && threadIdx.x == 0;
@@ -168,21 +193,22 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
   unsigned* tail = reinterpret_cast<unsigned*>(qlo + qlo_slots(N));
   const unsigned* f = fg;
   const unsigned* r = rg;
-  unsigned* packed;
-  if (kPath == kShared) {
+  State* packed;
+  if constexpr (kPath == kShared) {
     f = tail;
     r = tail + n_pad;
     packed = tail + 2 * n_pad;
-  } else if (kPath == kState) {
+  } else if constexpr (kPath == kState) {
     packed = tail;
   } else {
     packed = packed_g + static_cast<size_t>(row) * n_pad;
   }
-  unsigned short* prev =
-      kPath == kScratch ? prev_g + static_cast<size_t>(row) * n_pad
-                        : reinterpret_cast<unsigned short*>(packed + n_pad);
+  Prev* prev = kPath >= kScratch
+                   ? prev_g + static_cast<size_t>(row) * n_pad
+                   : reinterpret_cast<Prev*>(packed + n_pad);
   // Chunk f bounds: in the states' space until the DP overwrites it.
-  int* fmin = reinterpret_cast<int*>(kPath == kScratch ? tail : packed);
+  int* fmin = kPath == kScratch ? reinterpret_cast<int*>(tail)
+                                : reinterpret_cast<int*>(packed);
   int* fmax = fmin + n_pad / kC;
 
   // Chunk bounds over the valid matches (f and r staged on kShared).
@@ -220,7 +246,7 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
   }
   __syncthreads();
 
-  unsigned chain_end = 0;        // warp 0: the largest state so far
+  State chain_end = 0;  // warp 0: the largest state so far (kWide: a lane's)
   PROFILE_MARK(0);
   for (int k = 0; k < K; ++k) {
     const int i = k * kC + lane;
@@ -231,20 +257,30 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
 
     // Cross phase: predecessors in chunks [q_lo, k), split over the warps
     // in eighths of 4 loads of f, r and states (8 predecessors) each.
-    unsigned best = 0;
+    State best = 0;
     for (int u = qlo[k] * 4 + warp; u < k * 4; u += nwarps) {
       const unsigned* fu = f + u * 8;
       const unsigned* ru = r + u * 8;
-      const unsigned* pu = packed + u * 8;
+      const State* pu = packed + u * 8;
 #pragma unroll
       for (int jj = 0; jj < 8; jj += 4) {
         const uint4 fj = load4<kPath>(fu + jj);
         const uint4 rj = load4<kPath>(ru + jj);
-        const uint4 pj = *reinterpret_cast<const uint4*>(pu + jj);
-        best = take(best, fj.x, rj.x, pj.x, fi1, ri1);
-        best = take(best, fj.y, rj.y, pj.y, fi1, ri1);
-        best = take(best, fj.z, rj.z, pj.z, fi1, ri1);
-        best = take(best, fj.w, rj.w, pj.w, fi1, ri1);
+        if constexpr (kPath == kWide) {
+          const ulonglong2 pa = *reinterpret_cast<const ulonglong2*>(pu + jj);
+          const ulonglong2 pb =
+              *reinterpret_cast<const ulonglong2*>(pu + jj + 2);
+          best = take(best, fj.x, rj.x, pa.x, fi1, ri1);
+          best = take(best, fj.y, rj.y, pa.y, fi1, ri1);
+          best = take(best, fj.z, rj.z, pb.x, fi1, ri1);
+          best = take(best, fj.w, rj.w, pb.y, fi1, ri1);
+        } else {
+          const uint4 pj = *reinterpret_cast<const uint4*>(pu + jj);
+          best = take(best, fj.x, rj.x, pj.x, fi1, ri1);
+          best = take(best, fj.y, rj.y, pj.y, fi1, ri1);
+          best = take(best, fj.z, rj.z, pj.z, fi1, ri1);
+          best = take(best, fj.w, rj.w, pj.w, fi1, ri1);
+        }
       }
     }
     // The chunk's own links, split over the warps too: bit s of `link` is
@@ -262,39 +298,79 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
 
     // Serial phase: warp 0 resolves the chunk's columns in order.
     if (warp == 0) {
-      unsigned ext = 0, succ = 0;
+      State ext = 0;
+      unsigned succ = 0;
       for (int w = 0; w < nwarps; ++w) {
         ext = max(ext, part[w][lane]);
         succ |= link_part[w][lane];
       }
       PROFILE_MARK(2);
-      const unsigned low = 0x10000u + (kJMask - i);  // pack: + lis field
-      unsigned mine = 0, got = 0;
+      if constexpr (kPath == kWide) {
+        // The best offer of a column is the key (lis << 5) | (31 - c) of
+        // lane c; its state's low word is lo31 + (31 - c), lo31 that of
+        // lane 31's match.  lis <= N < 2^27, so the key fits.
+        const unsigned lo31 = kWideNone - (k * kC + kC - 1);
+        unsigned key = 0;
+        State got = 0;
 #pragma unroll 1
-      for (int s = 0; s < n_cols; ++s) {
-        const unsigned b =
-            __reduce_max_sync(kFull, (succ >> s) & 1u ? mine : 0u);
-        const unsigned v = max(b, ext);
-        if (lane == s) {
-          got = v;
-          mine = (v & 0xFFFF0000u) + low;
+        for (int s = 0; s < n_cols; ++s) {
+          const unsigned b =
+              __reduce_max_sync(kFull, (succ >> s) & 1u ? key : 0u);
+          const State v = max(
+              b ? (State(b >> 5) << 32) | (lo31 + (b & (kC - 1))) : State(0),
+              ext);
+          if (lane == s) {
+            got = v;
+            key = (static_cast<unsigned>(v >> 32) + 1u) << 5 |
+                  (kC - 1 - lane);
+          }
         }
+        PROFILE_MARK(3);
+        if (vi) {
+          const State mine = State(key >> 5) << 32 | (kWideNone - i);
+          packed[i] = mine;
+          prev[i] = ~static_cast<unsigned>(got);
+          chain_end = max(chain_end, mine);
+        }
+      } else {
+        const unsigned low = 0x10000u + (kJMask - i);  // pack: + lis field
+        unsigned mine = 0, got = 0;
+#pragma unroll 1
+        for (int s = 0; s < n_cols; ++s) {
+          const unsigned b =
+              __reduce_max_sync(kFull, (succ >> s) & 1u ? mine : 0u);
+          const unsigned v = max(b, ext);
+          if (lane == s) {
+            got = v;
+            mine = (v & 0xFFFF0000u) + low;
+          }
+        }
+        PROFILE_MARK(3);
+        if (vi) {
+          packed[i] = mine;
+          prev[i] = static_cast<unsigned short>(~got & kJMask);
+        }
+        chain_end = max(chain_end, __reduce_max_sync(kFull, mine));
       }
-      PROFILE_MARK(3);
-      if (vi) {
-        packed[i] = mine;
-        prev[i] = static_cast<unsigned short>(~got & kJMask);
-      }
-      chain_end = max(chain_end, __reduce_max_sync(kFull, mine));
     }
     __syncthreads();
     PROFILE_MARK(4);
   }
 
+  if constexpr (kPath == kWide) {
+    if (warp == 0) chain_end = bioinfo1::warp_max(chain_end);
+  }
   if (threadIdx.x == 0) {
     // count == 0: length 0 and endpoints read from lane 0, as lis_chain.
     int length = 0, end = 0, root = 0;
-    if (chain_end > 0) {
+    if constexpr (kPath == kWide) {
+      if (chain_end > 0) {
+        length = static_cast<int>(chain_end >> 32);
+        end = static_cast<int>(kWideNone - static_cast<unsigned>(chain_end));
+        root = end;
+        for (unsigned p = prev[root]; p != kWideNone; p = prev[root]) root = p;
+      }
+    } else if (chain_end > 0) {
       length = static_cast<int>(chain_end >> 16);
       end = static_cast<int>(kJMask - (chain_end & kJMask));
       root = end;
@@ -332,25 +408,26 @@ int launch(const void* f, const void* r, const void* count, int R, int N,
   lis_chain_kernel<kPath><<<R, threads, smem, stream>>>(
       static_cast<const int*>(f), static_cast<const int*>(r),
       static_cast<const int*>(count), R, N,
-      static_cast<unsigned*>(packed_scratch),
-      static_cast<unsigned short*>(prev_scratch), static_cast<int*>(out));
+      static_cast<StateT<kPath>*>(packed_scratch),
+      static_cast<PrevT<kPath>*>(prev_scratch), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // f, r: (R, N) int32; count: (R,) int32; path: 0 shared, 1 state, 2
-// scratch (ops/chain.CHAIN_PATHS); packed_scratch: (R, n_pad) uint32 and
-// prev_scratch: (R, n_pad) uint16 on the scratch path (n_pad = N rounded up
-// to 32), else unused; threads: 32-512, a multiple of 32; out: (5, R) int32
-// rows length, q_start, q_end, t_start, t_end.
+// scratch, 3 wide (ops/chain.CHAIN_PATHS); packed_scratch: (R, n_pad) uint32
+// and prev_scratch: (R, n_pad) uint16 on the scratch path, (R, n_pad) uint64
+// and uint32 on the wide path (n_pad = N rounded up to 32), else unused;
+// N: at most 65535, on the wide path kWideMaxN; threads: 32-512, a multiple
+// of 32; out: (5, R) int32 rows length, q_start, q_end, t_start, t_end.
 extern "C" int bioinfo1_lis_chain(const void* f, const void* r,
                                   const void* count, int R, int N,
                                   void* packed_scratch, void* prev_scratch,
                                   void* out, int path, int threads,
                                   void* stream) {
   if (threads % 32 || threads < 32 || threads > 32 * kMaxWarps || N < 1 ||
-      N > 0xFFFF)
+      N > (path == kWide ? kWideMaxN : 0xFFFF))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (path) {
@@ -363,6 +440,9 @@ extern "C" int bioinfo1_lis_chain(const void* f, const void* r,
     case kScratch:
       return launch<kScratch>(f, r, count, R, N, packed_scratch,
                               prev_scratch, out, threads, s);
+    case kWide:
+      return launch<kWide>(f, r, count, R, N, packed_scratch, prev_scratch,
+                           out, threads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

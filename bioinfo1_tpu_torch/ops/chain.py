@@ -8,18 +8,21 @@ endpoints are returned.
 
 ``lis_chain`` is the wrapper of kernel K1 (csrc/lis_chain.cu): CUDA tensors
 launch the kernel, CPU tensors take ``lis_chain_plain``, the plain PyTorch
-version (a Python loop over i in place of the JAX ``fori_loop``).
+version (a Python loop over i in place of the JAX ``fori_loop``).  It counts
+its launches on ``lis_chain.launches`` and by path of ``chain_plan`` on
+``lis_chain.path_launches``.
 
 K1 is a two-level DP over chunks of ``CHAIN_C`` matches: the predecessors
 of chunk k in finished chunks come from chunks [q_lo[k], k) only
 (``chunk_q_lo``, the kernel's rule on the host), then one warp scans the
 chunk's columns in order.  ``chain_plan`` picks where the kernel keeps a
-row's matches and states.
+row's matches and states, and past 65,535 matches its wide state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -27,13 +30,15 @@ import torch
 from bioinfo1_tpu_torch.kernels import build
 
 _GAP_CAP = 5000
-_MAX_N = 0xFFFF         # K1 packs the match index into 16 bits
+_NARROW_MAX_N = 0xFFFF  # K1's 32-bit state packs the match index in 16 bits
+_MAX_N = 1 << 21        # the wide path's q_lo: a 16-bit index of chunks
 CHAIN_C = 32            # K1's chunk: one match per lane of a warp
 CHAIN_THREADS = 512     # threads per CTA (one CTA per row)
 # Storage paths of csrc/lis_chain.cu, by their C number: f, r, states and
 # prev in shared memory; f and r read from the inputs, states and prev in
-# shared memory; states and prev in global scratch rows.
-CHAIN_PATHS = ("shared", "state", "scratch")
+# shared memory; states and prev in global scratch rows; 64-bit states and
+# 32-bit prev in global scratch rows (budgets past _NARROW_MAX_N).
+CHAIN_PATHS = ("shared", "state", "scratch", "wide")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +53,18 @@ class ChainPlan:
 
 
 def chain_plan(N: int) -> ChainPlan:
-    """K1's storage path for a match budget N: the first of shared (14 bytes
-    a match), state (6) and scratch (the chunk bounds only) whose shared
-    bytes fit build.SMEM_LIMIT.  Every path also holds q_lo, 2 bytes a
-    chunk in whole 16-byte groups."""
+    """K1's storage path for a match budget N: up to 65,535 the first of
+    shared (14 bytes a match), state (6) and scratch (the chunk bounds only)
+    whose shared bytes fit build.SMEM_LIMIT; past it wide (no more shared
+    bytes).  Every path also holds q_lo, 2 bytes a chunk in whole 16-byte
+    groups."""
     if not 1 <= N <= _MAX_N:
         raise ValueError(f"chain_plan: match budget {N} outside [1, {_MAX_N}]")
     n_pad = -(-N // CHAIN_C) * CHAIN_C
     chunks = n_pad // CHAIN_C
     head = 2 * (-(-chunks // 8) * 8)
+    if N > _NARROW_MAX_N:
+        return ChainPlan("wide", CHAIN_THREADS, head)
     for path, nbytes in (("shared", head + 14 * n_pad),
                          ("state", head + 6 * n_pad)):
         if nbytes <= build.SMEM_LIMIT:
@@ -156,18 +164,19 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
             raise ValueError(f"lis_chain: {name} must be a contiguous int32 "
                              f"{shape} tensor on {f_pos.device}")
     if not 1 <= N <= _MAX_N:
-        raise ValueError(f"lis_chain: match budget {N} outside the kernel's "
-                         f"packed-index range [1, {_MAX_N}]")
+        raise ValueError(f"lis_chain: match budget {N} outside K1's range "
+                         f"[1, {_MAX_N}]")
     out = torch.empty((5, R), dtype=torch.int32, device=f_pos.device)
     if R:
         plan = chain_plan(N)
-        packed = prev = None            # the scratch path's state rows
-        if plan.path == "scratch":
+        packed = prev = None        # the scratch and wide paths' state rows
+        if plan.path in ("scratch", "wide"):
             n_pad = -(-N // CHAIN_C) * CHAIN_C
-            packed = torch.empty((R, n_pad), dtype=torch.int32,
-                                 device=f_pos.device)
-            prev = torch.empty((R, n_pad), dtype=torch.int16,
-                               device=f_pos.device)
+            wide = plan.path == "wide"
+            packed = torch.empty((R, n_pad), device=f_pos.device,
+                                 dtype=torch.int64 if wide else torch.int32)
+            prev = torch.empty((R, n_pad), device=f_pos.device,
+                               dtype=torch.int32 if wide else torch.int16)
         build.launch(
             lis_chain, "bioinfo1_lis_chain",
             f_pos.data_ptr(), r_pos.data_ptr(), count.data_ptr(), R, N,
@@ -176,7 +185,13 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
             out.data_ptr(), CHAIN_PATHS.index(plan.path), plan.threads,
             torch.cuda.current_stream(f_pos.device).cuda_stream,
             device=f_pos.device)
+        with _path_lock:
+            lis_chain.path_launches[plan.path] += 1
     return ChainResult(*out.unbind(0))
 
 
 lis_chain.launches = 0
+# K1 launches by path of chain_plan (the mapper launches from several worker
+# threads).
+lis_chain.path_launches = dict.fromkeys(CHAIN_PATHS, 0)
+_path_lock = threading.Lock()

@@ -1060,7 +1060,10 @@ class Mapper:
                 retry_s, realign_s = set(retry), set(realign)
                 # >2% of a batch overflowing marks the bucket repeat-dense:
                 # widen its future starting budget to cover the exact
-                # observed need (capped within the chain kernel's range).
+                # observed need.  The boost is cut back until base x boost
+                # is within 32,768 (or the boost is 1): the JAX package's
+                # ladder (its mapper.py:1213), kept so that the retries
+                # match it; K1 itself takes larger budgets.
                 if len(retry_s) > max(2, len(sub_idxs) // 50):
                     need_max = max((need.get(loc, 0) for loc in retry_s),
                                    default=0)

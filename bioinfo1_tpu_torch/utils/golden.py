@@ -9,7 +9,10 @@ the same hashes, on the CPU (``tests/test_torch_golden.py``) or on the card
 
 The file holds ``recipe`` (what ``write_inputs`` makes) and ``runs``, a
 list of ``{"name", "flags", "sha256"}``; a run is the CLI with its flags on
-the recipe's reference and reads, and its hash is that of its stdout.
+the recipe's reference and reads, and its hash is that of its stdout.  A
+run with ``"reads"`` (indices into the recipe's reads) maps those alone
+(``tests/torch_golden_ultra.json``: one read of ~150 kb and one of ~250 kb,
+each a run of its own).
 """
 
 from __future__ import annotations
@@ -31,27 +34,40 @@ def load(path: str) -> dict:
 
 def records(recipe: dict) -> Tuple[str, List[Tuple[str, str]]]:
     """(genome, read records) of the recipe: a random genome, ONT-profile
-    reads of ``lengths``, near-exact reads of ``accurate_lengths`` and one
-    read with a deletion (``deletion``: start, length kept on each side,
-    bases left out), all from one generator seeded with ``seed``."""
+    reads of ``lengths``, then, where the recipe names them, near-exact
+    reads of ``accurate_lengths`` and one read with a deletion
+    (``deletion``: start, length kept on each side, bases left out), all
+    from one generator seeded with ``seed``."""
     rng = np.random.default_rng(recipe["seed"])
     genome = sim.random_genome(recipe["genome_len"], rng)
     recs = sim.simulate_reads(genome, recipe["lengths"], rng)
-    recs += sim.simulate_reads(genome, recipe["accurate_lengths"], rng,
-                               sub_rate=recipe["accurate_sub_rate"],
-                               ins_rate=0.0, del_rate=0.0)
-    d = recipe["deletion"]
     g = genome.tobytes().decode("latin1")
-    s0, keep, gap = d["start"], d["keep"], d["gap"]
-    recs.append((d["name"], g[s0:s0 + keep]
-                 + g[s0 + keep + gap:s0 + 2 * keep + gap]))
+    if "accurate_lengths" in recipe:
+        recs += sim.simulate_reads(genome, recipe["accurate_lengths"], rng,
+                                   sub_rate=recipe["accurate_sub_rate"],
+                                   ins_rate=0.0, del_rate=0.0)
+    if "deletion" in recipe:
+        d = recipe["deletion"]
+        s0, keep, gap = d["start"], d["keep"], d["gap"]
+        recs.append((d["name"], g[s0:s0 + keep]
+                     + g[s0 + keep + gap:s0 + 2 * keep + gap]))
     return g, recs
 
 
-def write_inputs(recipe: dict, directory: str) -> Tuple[str, str]:
-    """Writes the recipe's reference (FASTA) and reads (FASTQ) into
-    ``directory``; returns their paths."""
+def run_records(recs: List[Tuple[str, str]],
+                run: dict) -> List[Tuple[str, str]]:
+    """The records of ``recs`` (the recipe's) that a run maps: its
+    ``reads``, else all."""
+    return [recs[i] for i in run["reads"]] if "reads" in run else recs
+
+
+def write_inputs(recipe: dict, directory: str,
+                 run: dict = None) -> Tuple[str, str]:
+    """Writes the recipe's reference (FASTA) and reads (FASTQ; with ``run``,
+    the reads that run maps) into ``directory``; returns their paths."""
     genome, recs = records(recipe)
+    if run is not None:
+        recs = run_records(recs, run)
     os.makedirs(directory, exist_ok=True)
     ref = os.path.join(directory, "golden_ref.fa")
     reads = os.path.join(directory, "golden_reads.fq")

@@ -14,7 +14,11 @@ run):
      (matrix cells, window pairs, steps, bytes; the lanes or pairs a
      kernel sweeps beside them): K1 LIS chain (phase 1's rows at three
      budgets, each row naming its ops/chain.chain_plan path, and the match
-     rows the 50 kb reads of phase 2L give it on the main path), K2 banded
+     rows the 50 kb reads of phase 2L give it on the main path; its wide
+     path on the rows of the ~150 kb read's fused call, N = 73,728, of the
+     ~250 kb read's largest call, N = 196,608, and on a colinear row of
+     70,000, whose lis and predecessors pass 65,535, timed beside a flat
+     row of the same pair tests: the pointer chase's share), K2 banded
      score, K3 full score (every mode on one strip, B = 64, n = 512, and
      on several, B = 32, n = 4,608; a one-row last strip; more reads than
      fill whole CTAs; each row naming its ops/align.full_plan rows per
@@ -113,7 +117,14 @@ run):
      byte-identical, faults 0; reads/s of each pass.  Then -c on 2 of the
      reads (K4 on strips, one read a chunk, and K5): every CIGAR spans its
      PAF line's extents and scores, recomputed on the host, the score-only
-     run's score.
+     run's score.  Two reads of ~98 kb (the 98,304 bucket, whose doubled
+     match budget, 73,728, takes K1's wide path) must map with no fault
+     and give C11_OUTCOME's PAF.  Then the second golden recipe
+     (tests/torch_golden_ultra.json): a ~150 kb and a ~250 kb read on a
+     600 kb genome, each alone, fresh and adapted passes: K1's wide path
+     and strips launched, faults 0, each PAF at its pinned sha256 (the JAX
+     CLI's on the CPU for the ~150 kb read, the port's CPU run's for the
+     ~250 kb one).
   2r. bench_torch.measure_repeat() at full size (a 4,641,652 bp
      repeat-structured genome, 1,026 + 1,026 reads, score-only and -c)
      with its reads/s and counters, then bench_torch.measure_sol(): K6's
@@ -193,8 +204,8 @@ run):
 The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
 The second-to-last line is the kernel table as JSON: per kernel (K1-K6,
-K2's cluster path as its own entry, launched on phase 2L, and K2's and
-K4's strip path, launched on phase 2U) its
+K2's cluster path as its own entry, launched on phase 2L, K2's and K4's
+strip path and K1's wide path, launched on phase 2U) its
 launches on its path, its time, the plain version's, and its bound - the
 larger of its bytes over the card's memory rate and the int32 operations
 the function needs (NEEDED_OPS per unit, times this run's cells inside
@@ -249,16 +260,30 @@ ULTRA_LEN = 100000
 # The ONT profile (3% insertions, 4% deletions) makes a read ~1.7% shorter
 # than its fragment: fragments of 101,700 bases give reads of 99.7-100.3
 # kb.  Fragments of 100,000 give reads of 98.1-98.6 kb, some in the 98,304
-# length bucket, whose doubled match budget (73,728) K1 refuses (ROADMAP
-# C11): phase 2U maps two of those apart and reports what happens.
+# length bucket, whose base match budget (36,864) they overflow; the retry
+# doubles it to 73,728, which K1 runs on its wide path (ROADMAP C11, closed):
+# phase 2U maps two of those apart.
 ULTRA_FRAGMENT = 101700
-# What those two reads give today (ROADMAP C11): each batch faults and the
-# reads come out unmapped.
-C11_OUTCOME = {"reads": [98096, 98218], "faults": 2, "paf_lines": 0}
+# What those two reads give (ROADMAP C11): no fault, both mapped, the PAF's
+# sha256 that of the port's CLI on the CPU, the plain version of every
+# kernel (the bench's genome as "bench", the two reads as FASTQ, default
+# flags; the JAX CLI's fused step asks for tens of GB of host memory on
+# them in interpret mode).  Before the wide path: two faults and no line.
+C11_SHA256 = ("a1d93eefe083056270b1acbece94b174"
+              "4266af1e25df8f821cb435435a4101d5")
+C11_OUTCOME = {"reads": [98096, 98218], "faults": 0, "paf_lines": 2,
+               "sha256": C11_SHA256}
 N_NOCERT_READS = 512              # -g 1 (phase 2g)
 N_NOCERT_LOCAL_READS = 256        # -a local -g 1 (phase 2g)
 CPU_STAGED_MAX_LEN = 4500
 GOLDEN = os.path.join(REPO, "tests", "torch_golden.json")   # phase 2a
+# Phase 2U's reads past 131 kb: a ~150 kb and a ~250 kb read, each a run of
+# this second golden recipe, pinned from a CLI on the CPU (the JAX
+# package's, or the port's where the JAX CLI does not finish).
+GOLDEN_ULTRA = os.path.join(REPO, "tests", "torch_golden_ultra.json")
+# K1's wide path on a colinear row of this many matches (phase 1): lis and
+# the chosen predecessors pass 65,535, and the chase walks every match.
+WIDE_CHASE_N = 70000
 # Phase 1 draws, from one generator: K1's rows at these (R, N), then the
 # (B, n, m) pairs of the kernel table's K2 / K4 / K5 rows (W = 256).
 CHAIN_SHAPES = ((512, 1536), (64, 16384), (64, 24576))
@@ -291,6 +316,7 @@ PEAK_INT32_PER_S = 67e12 / 2
 #   trip (K6): the adds and maxes its source writes, 2 * ILP * UNROLL.
 NEEDED_OPS = {
     "lis_chain": 5,
+    "lis_chain_wide": 5,
     "band_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_score_cluster": bench_torch.NEEDED_OPS_PER_CELL,
     "band_score_strip": bench_torch.NEEDED_OPS_PER_CELL,
@@ -304,6 +330,10 @@ NEEDED_OPS = {
 KERNELS = {
     "lis_chain": ("bioinfo1_tpu_torch/csrc/lis_chain.cu",
                   "bioinfo1_tpu/ops/pallas_chain.py:57"),
+    # K1's wide path (match budgets past 65,535): reads of ~98 kb that
+    # overflow, and reads past 131 kb.
+    "lis_chain_wide": ("bioinfo1_tpu_torch/csrc/lis_chain.cu",
+                       "bioinfo1_tpu/ops/pallas_chain.py:57"),
     "band_score": ("bioinfo1_tpu_torch/csrc/band_score.cu",
                    "bioinfo1_tpu/ops/pallas_band.py:56"),
     # K2's cluster path (kRegMaxW < W <= 32,768): the 50 kb reads' bands.
@@ -751,6 +781,15 @@ def phase_kernels(dev) -> dict:
     f, r, cnt = chain_rows_50k(dev)[0]
     rows["lis_chain"].append(chain_row(
         f"lis_chain 50kb rows R={f.shape[0]} N={f.shape[1]}", f, r, cnt, 3))
+    # K1's wide path: the rows of the ~150 kb read's fused call (the 196,608
+    # bucket's base budget, 73,728) and of the ~250 kb read's largest call,
+    # then a colinear row past 65,535.
+    for run, what in ((0, "150kb"), (1, "250kb")):
+        f, r, cnt = chain_rows_ultra(dev, run)[0]
+        rows["lis_chain_wide"].append(chain_row(
+            f"lis_chain_wide {what} rows R={f.shape[0]} N={f.shape[1]}", f,
+            r, cnt, 3))
+    rows["lis_chain_wide"].append(wide_chase_row(dev))
     rows["cluster_occupancy"] = cluster_occupancy()
     return rows
 
@@ -763,6 +802,31 @@ def chain_row(name: str, f, r, cnt, reps: int) -> dict:
                   lambda: ch.lis_chain_plain(f, r, cnt), reps=reps)
     row.update(dataclasses.asdict(ch.chain_plan(f.shape[1])))
     row.update(chain_work(f, r, cnt))
+    return row
+
+
+def wide_chase_row(dev) -> dict:
+    """K1's wide path on chase_rows(WIDE_CHASE_N): the colinear row (lis
+    and every chosen predecessor past 65,535 at its end, a chase of N - 1
+    steps through global memory) against the plain version, and the flat
+    row beside it (the same f and pair tests, no predecessor, no chase),
+    held to its closed form and timed: chain - flat is the chase's time."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    N = WIDE_CHASE_N
+    rows = chase_rows(N, dev)
+    row = chain_row(f"lis_chain_wide colinear R=1 N={N}", *rows["chain"], 3)
+    check(row["path"] == "wide", f"N = {N} is not on the wide path")
+    got = ch.lis_chain(*rows["chain"])
+    check(got.length.tolist() == [N], f"colinear row: length "
+                                      f"{got.length.tolist()}, not {N}")
+    flat = ch.lis_chain(*rows["flat"])
+    check([getattr(flat, k).tolist() for k in ("length", "q_start", "q_end",
+                                                "t_start", "t_end")]
+          == [[1], [1], [1], [N], [N]],
+          "flat row: not a chain of one match at j = 0")
+    row["flat_ms"] = cuda_ms(lambda: ch.lis_chain(*rows["flat"]), 3)
+    row["chase_ms"] = row["ms"] - row["flat_ms"]
+    row["chase_ns_per_step"] = 1e6 * row["chase_ms"] / (N - 1)
     return row
 
 
@@ -1084,17 +1148,38 @@ def chain_rows_50k(dev) -> list:
     one score-only ``Mapper.map_records`` run (the fused step's
     find_matches_combined rows of both strands, budget retries included),
     captured on the way in, largest match budget first."""
+    genome, recs = longread_records()
+    return chain_calls([("bench", genome)], recs, dev)
+
+
+def chain_rows_ultra(dev, run: int = 0) -> list:
+    """chain_rows_50k for a run of the second golden recipe (GOLDEN_ULTRA):
+    the ~150 kb read's largest call is its fused call at the 196,608
+    bucket's base budget, 73,728; the ~250 kb read's, the 262,144 bucket's
+    98,304 doubled by an overflow retry: both K1's wide path."""
+    from bioinfo1_tpu_torch.utils import golden
+    pin = golden.load(GOLDEN_ULTRA)
+    genome, recs = golden.records(pin["recipe"])
+    return chain_calls([(pin["recipe"]["ref_name"], genome)],
+                       golden.run_records(recs, pin["runs"][run]), dev)
+
+
+def chain_calls(refs, recs, dev) -> list:
+    """The inputs of every ``lis_chain`` call of one score-only
+    ``Mapper.map_records`` run of ``recs`` on ``refs``, captured on the way
+    in, largest match budget first."""
     from bioinfo1_tpu_torch.ops import chain as ch
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
-    genome, recs = longread_records()
-    mapper = Mapper([("bench", genome)], MapperConfig(), device=dev)
+    mapper = Mapper(refs, MapperConfig(), device=dev)
     calls, real = [], ch.lis_chain
 
     def capture(f, r, cnt):
         calls.append(tuple(x.clone() for x in (f, r, cnt)))
         return real(f, r, cnt)
 
-    capture.launches = 0        # the wrapper counts on its module's name
+    # The wrapper counts on its module's name.
+    capture.launches, capture.path_launches = 0, dict.fromkeys(
+        ch.CHAIN_PATHS, 0)
     ch.lis_chain = capture
     try:
         mapper.map_records(recs)
@@ -1408,7 +1493,8 @@ def phase_lpt_trial(dev) -> dict:
 def issued_per_unit(listing: str) -> dict:
     """Integer instructions each kernel issues per unit of work, counted in
     its own SASS: for K1 the integer instructions of its cross loop per pair
-    (and of its serial loop per step, on each storage path), for K3 those
+    (the shared path's, and the wide path's for its own entry; of its serial
+    loop per step, on each storage path), for K3 those
     of its interior pair loop per swept cell (global, the rows per thread of
     ops/align.FULL_LPT), per step for K5 (global mode's
     step loop), per trip (its add and max instructions) for K6.  For K2
@@ -1427,6 +1513,7 @@ def issued_per_unit(listing: str) -> dict:
 
     chain = sass.chain_loops(listing)
     return {"lis_chain": chain["shared"]["cross"]["int_per_pair"],
+            "lis_chain_wide": chain["wide"]["cross"]["int_per_pair"],
             "lis_chain_serial_step": {
                 path: loops["serial"]["int_per_step"]
                 for path, loops in chain.items()},
@@ -1526,22 +1613,21 @@ def parse_profile(err: str) -> dict:
 
 
 class _PathCount:
-    """The launches of one path of ops/band.band_plan (K2 and K4 together;
-    the score-only runs launch K2 alone), read and reset like a wrapper's
-    count: ``launches``."""
+    """The launches of one path of a wrapper that counts them by path
+    (``path_launches``: ops/band.band_plan's, K2 and K4 together, the
+    score-only runs launching K2 alone; ops/chain.chain_plan's), read and
+    reset like a wrapper's count: ``launches``."""
 
-    def __init__(self, path: str):
-        self.path = path
+    def __init__(self, wrapper, path: str):
+        self.wrapper, self.path = wrapper, path
 
     @property
     def launches(self) -> int:
-        from bioinfo1_tpu_torch.ops import band as bd
-        return bd.align_scores_banded.path_launches[self.path]
+        return self.wrapper.path_launches[self.path]
 
     @launches.setter
     def launches(self, n: int) -> None:
-        from bioinfo1_tpu_torch.ops import band as bd
-        bd.align_scores_banded.path_launches[self.path] = n
+        self.wrapper.path_launches[self.path] = n
 
 
 def launch_counters() -> dict:
@@ -1551,28 +1637,33 @@ def launch_counters() -> dict:
     from bioinfo1_tpu_torch.ops import chain as ch
     from bioinfo1_tpu_torch.ops import probe
     from bioinfo1_tpu_torch.ops import trace as tr
+    band = bd.align_scores_banded
     return {"int32_probe": (probe.int32_probe, "launches"),
             "lis_chain": (ch.lis_chain, "launches"),
-            "band_score": (bd.align_scores_banded, "launches"),
-            "band_score_cluster": (_PathCount("cluster"), "launches"),
+            "lis_chain_wide": (_PathCount(ch.lis_chain, "wide"), "launches"),
+            "band_score": (band, "launches"),
+            "band_score_cluster": (_PathCount(band, "cluster"), "launches"),
             # K2 and K4 on the strip path together: a score-only run
             # launches K2 alone there, a -c run K4 alone (phase 2U).
-            "band_score_strip": (_PathCount("strip"), "launches"),
-            "band_parents_strip": (_PathCount("strip"), "launches"),
+            "band_score_strip": (_PathCount(band, "strip"), "launches"),
+            "band_parents_strip": (_PathCount(band, "strip"), "launches"),
             "full_score": (al.align_scores, "launches"),
-            "band_parents": (bd.align_scores_banded, "parent_launches"),
+            "band_parents": (band, "parent_launches"),
             "walk_parents": (tr.walk_parents, "launches")}
 
 
 def reset_launches() -> dict:
     from bioinfo1_tpu_torch.kernels import build
     from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.ops import chain as ch
     build.launches_by_device.clear()
     counters = launch_counters()
     for wrapper, attr in counters.values():
         setattr(wrapper, attr, 0)
-    for path in bd.PATHS:
-        bd.align_scores_banded.path_launches[path] = 0
+    for counts in (bd.align_scores_banded.path_launches,
+                   ch.lis_chain.path_launches):
+        for path in counts:
+            counts[path] = 0
     return counters
 
 
@@ -2596,16 +2687,76 @@ def phase_ultralong(dev) -> dict:
            "bucket_top": bucket_top_faults(mapper)}
     del mapper
     torch.cuda.empty_cache()
+    res["golden"] = golden_ultra(dev)
     return res
+
+
+def golden_ultra(dev) -> dict:
+    """Reads past 131 kb (GOLDEN_ULTRA: a ~150 kb read in the 196,608
+    length bucket, base match budget 73,728, and a ~250 kb read in the
+    262,144 bucket, 98,304), each run mapped alone in-process, score-only,
+    a fresh and an adapted pass: no batch may raise, K1's wide path and
+    the strip path must launch in each pass, and each pass's PAF must have
+    the run's pinned sha256 (a CLI's on the CPU: the JAX package's, or the
+    port's plain version of every kernel where the JAX CLI does not
+    finish).  ``launches`` are the first run's fresh pass's."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    from bioinfo1_tpu_torch.utils import golden
+    pin = golden.load(GOLDEN_ULTRA)
+    genome, recs = golden.records(pin["recipe"])
+    mapper = Mapper([(pin["recipe"]["ref_name"], genome)], MapperConfig(),
+                    device=dev)
+    mapper.device_index()
+    runs, launches = [], None
+    for run in pin["runs"]:
+        reads = golden.run_records(recs, run)
+        mapper._band_by_key.clear()
+        mapper._budget_boost.clear()
+        for pass_ in ("fresh", "adapted"):
+            name = f"{run['name']} {pass_}"
+            before = mapper.counters.as_dict()
+            counters = reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines = mapper.map_records(reads)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: getattr(w, a) for k, (w, a) in counters.items()}
+            launches = launches or got
+            after = mapper.counters.as_dict()
+            paths = dict(bd.align_scores_banded.path_launches)
+            sha = golden.sha256("".join(line + "\n" for line in lines))
+            runs.append({
+                "run": run["name"], "pass": pass_,
+                "read_lens": [len(s) for _, s in reads], "wall_s": wall,
+                "paf_lines": len(lines), "sha256": sha,
+                "band_path_launches": paths,
+                "lis_chain_wide": got["lis_chain_wide"],
+                "counters": {k: after[k] - before.get(k, 0)
+                             for k in after if k != "cert_hit_rate"
+                             and isinstance(after[k], (int, float))}})
+            check(runs[-1]["counters"]["faults"] == 0,
+                  f"{name}: a batch raised")
+            check(got["lis_chain_wide"] >= 1 and paths["strip"] >= 1,
+                  f"{name}: K1's wide path or the strip path never "
+                  f"launched ({got['lis_chain_wide']}, {paths})")
+            check(sha == run["sha256"] and len(lines) == len(reads),
+                  f"{name}: {len(lines)} PAF lines, sha256 {sha}, not the "
+                  f"pinned {run['sha256']}")
+    del mapper
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches}
 
 
 def bucket_top_faults(mapper) -> dict:
     """ROADMAP C11: two reads of fragments of 100,000 bases that land in
     the 98,304 length bucket (98.1-98.2 kb), mapped as planned: the faults
-    (K1 refuses the doubled budget of 73,728 matches), the PAF lines, the
-    wall.  The outcome must stay the documented one (C11_OUTCOME), so that
-    a regression or a fix shows."""
+    (none, now that K1 runs the doubled budget of 73,728 matches on its
+    wide path), the PAF lines and their sha256, the wall.  The outcome
+    must stay the documented one (C11_OUTCOME)."""
     from bioinfo1_tpu_torch.pipeline import mapper as mp
+    from bioinfo1_tpu_torch.utils import golden
     _, recs = ultralong_records(ULTRA_LEN)
     floor = mapper.cfg.k + mapper.cfg.w - 1
     top = [r for r in recs if mp._bucket_cap(len(r[1]), floor) == 98304][:2]
@@ -2619,12 +2770,12 @@ def bucket_top_faults(mapper) -> dict:
     torch.cuda.synchronize()
     res = {"reads": [len(r) for _, r in top], "paf_lines": len(lines),
            "faults": mapper.counters.faults - before,
+           "sha256": golden.sha256("".join(line + "\n" for line in lines)),
            "errors": sorted(set(err.getvalue().splitlines()))[:4],
            "wall_s": time.perf_counter() - t0}
     got = {k: res[k] for k in C11_OUTCOME}
     check(got == C11_OUTCOME, f"ROADMAP C11: the 98,304 bucket's reads gave "
-                              f"{got}, not {C11_OUTCOME}; update C11 and "
-                              "C11_OUTCOME")
+                              f"{got}, not {C11_OUTCOME}")
     return res
 
 
@@ -3177,11 +3328,14 @@ def main() -> int:
     # Launches on each kernel's own path: the score-only run (phase 2) for
     # K1-K3, the 50 kb run (phase 2L) for K2's cluster path, the 100 kb
     # runs (phase 2U: the planned fresh pass, the -c run) for K2's and K4's
-    # strip path, the -c runs (phase 2c) for K4 and K5, the roofline (phase
+    # strip path, the ~150 kb read's planned fresh pass (phase 2U) for K1's
+    # wide path, the -c runs (phase 2c) for K4 and K5, the roofline (phase
     # 2r) for K6.
     path_launches = dict(p2["launches"])
     path_launches["band_score_cluster"] = p2l["launches"]["band_score_cluster"]
     path_launches["band_score_strip"] = p2u["launches"]["band_score_strip"]
+    path_launches["lis_chain_wide"] = p2u["golden"]["launches"][
+        "lis_chain_wide"]
     path_launches["band_parents_strip"] = p2u["cigar"]["launches"][
         "band_parents_strip"]
     for name in ("band_parents", "walk_parents"):

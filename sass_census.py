@@ -240,13 +240,13 @@ def full_interior_loop(listing: str, mode: int, lpt: int) -> dict:
 
 def chain_loops(listing: str) -> dict:
     """Census of the chain kernel's two DP loops for each storage path
-    (template argument kPath: 0 shared, 1 state, 2 scratch): the cross
-    loop, its largest innermost loop, whose trip tests 8 predecessors
+    (template argument kPath: 0 shared, 1 state, 2 scratch, 3 wide): the
+    cross loop, its largest innermost loop, whose trip tests 8 predecessors
     against each lane's column (``int_per_pair``), and the serial loop, the
     innermost loop with a REDUX and no memory access, one column a trip
     (``int_per_step``)."""
     out = {}
-    for path, name in enumerate(("shared", "state", "scratch")):
+    for path, name in enumerate(("shared", "state", "scratch", "wide")):
         instrs = function(listing, f"lis_chain_kernelILi{path}E")
         rows = [census(instrs, span) for span in innermost(instrs)]
         cross = dict(max(rows, key=lambda r: r["instructions"]))

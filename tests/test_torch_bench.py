@@ -392,9 +392,9 @@ def _chain_function(path):
 
 
 def test_chain_loops_finds_the_cross_and_the_serial_loop():
-    listing = "".join(_chain_function(p) for p in range(3))
+    listing = "".join(_chain_function(p) for p in range(4))
     got = sass.chain_loops(listing)
-    assert set(got) == {"shared", "state", "scratch"}
+    assert set(got) == {"shared", "state", "scratch", "wide"}
     for row in got.values():
         cross, serial = row["cross"], row["serial"]
         assert (cross["first"], cross["last"]) == ("0x00f0", "0x0210")
@@ -403,6 +403,6 @@ def test_chain_loops_finds_the_cross_and_the_serial_loop():
         # SEL, VIMNMX, LOP3, IADD3, ISETP; REDUX is no integer instruction.
         assert serial["int_per_step"] == 5
         assert serial["by_op"]["REDUX"] == 1
-    # A listing without the kernel's three instantiations is refused.
+    # A listing without the kernel's four instantiations is refused.
     with pytest.raises(KeyError):
         sass.chain_loops(_chain_function(0))

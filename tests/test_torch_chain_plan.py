@@ -12,11 +12,19 @@ and its Pallas kernel (``pallas_chain.lis_chain_sorted`` in interpret mode).
 ``q_lo`` must never drop a qualifying pair.  ``chain_plan`` is held to its
 paths and their shared-memory bytes.
 
+Past 65,535 matches K1 takes its wide path: states (lis << 32) | (0xFFFFFFFF
+- j) in 64 bits, and a serial scan that reduces the 32-bit key (lis << 5) |
+(31 - lane).  ``_replay(..., wide=True)`` does that too, on every case above
+and on rows of 65,535-70,000 matches with f ascending, where it must give
+every match the (lis, prev) of a windowed direct DP (``_direct_sorted``).
+
 Inputs: test_torch_chain._matches; repeat copies 4,999 and 5,000 apart;
 unsorted f; runs of equal f; counts 0, 1, 31, 32, 33 and N in one batch; N
 not a multiple of 32; an earliest-j tie across a chunk boundary; match
-rows of the JAX package's ``find_matches`` on simulated reads.  N <= 512.
-Tolerance: exact.
+rows of the JAX package's ``find_matches`` on simulated reads (N <= 512);
+for the wide state a colinear run of 70,000 (lis and the chosen j past
+65,535), an earliest-j tie across a chunk boundary at j > 65,535, and counts
+65,535, 65,536 and 65,537 in one batch.  Tolerance: exact.
 """
 
 import functools
@@ -35,6 +43,7 @@ from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch.kernels import build
 from bioinfo1_tpu_torch.ops import chain as tchain
 from test_torch_chain import FIELDS, _matches
+from torch_chain_rows import TIE_COL, TIE_J1, TIE_J2, WIDE_ROWS
 
 C = tchain.CHAIN_C
 GAP = 5000
@@ -47,7 +56,7 @@ def _bytes(path, N):
     n_pad = -(-N // C) * C
     head = 2 * (-(-(n_pad // C) // 8) * 8)
     return head + {"shared": 14 * n_pad, "state": 6 * n_pad,
-                   "scratch": 8 * (n_pad // C)}[path]
+                   "scratch": 8 * (n_pad // C), "wide": 0}[path]
 
 
 @pytest.mark.parametrize("N,path", [
@@ -70,19 +79,54 @@ def test_chain_plan_boundaries(last, path):
     assert tchain.chain_plan(last + 1).path != path
 
 
+@pytest.mark.parametrize("N", [65536, 65537, 73728, 98304, 786432,
+                               2 ** 21])
+def test_chain_plan_wide_path(N):
+    """Past 65,535 matches (the 16-bit index of the narrow state) every
+    budget takes the wide path, up to its limit of 65,536 chunks."""
+    assert tchain.chain_plan(N - 1).path == ("scratch" if N == 65536
+                                             else "wide")
+    plan = tchain.chain_plan(N)
+    assert plan.path == "wide"
+    assert plan.smem_bytes == _bytes("wide", N) <= build.SMEM_LIMIT
+    assert plan.threads == tchain.CHAIN_THREADS
+
+
 def test_chain_plan_rejects_budgets_outside_the_packed_range():
-    for N in (0, 0x10000):
-        with pytest.raises(ValueError):
+    for N in (0, 2 ** 21 + 1):
+        with pytest.raises(ValueError, match="outside"):
             tchain.chain_plan(N)
 
 
+def _base_budget(cap):
+    """The mapper's base match budget of a length bucket (~3L/8 in whole
+    128s; pipeline/mapper.py of both packages)."""
+    return -(-3 * cap // (8 * 128)) * 128
+
+
+@pytest.mark.parametrize("cap", [196608, 262144, 393216, 524288, 786432,
+                                 1048576])
+def test_chain_plan_takes_every_long_bucket_budget_and_its_doubling(cap):
+    """Reads of 131 kb to 1 Mb: both mappers put them in these length
+    buckets, and the base budget of each, and the budget one overflow
+    retry doubles it to, run on K1's wide path."""
+    from bioinfo1_tpu_torch.pipeline import mapper as tmapper
+    floor = tmapper.MapperConfig().k + tmapper.MapperConfig().w - 1
+    assert {m._bucket_cap(cap, floor) for m in (jmapper, tmapper)} == {cap}
+    base = _base_budget(cap)
+    for N in (base, 2 * base):
+        assert tchain.chain_plan(N).path == "wide", N
+
+
 def test_doubled_budget_of_the_98304_bucket_is_refused_by_both_packages():
-    """The budget behind a known fault on reads of ~98 kb: both mappers put
-    a read of 98,096 bases in the 98,304 length bucket with a base match
-    budget of 36,864 (~3L/8), which an overflow retry doubles to 73,728;
-    both packages' chain kernels refuse that budget (the JAX Pallas
-    kernel when it is traced, the port's plan), so the read's batch
-    faults in either."""
+    """The budget behind the fault on reads of ~98 kb (now repaired on the
+    port's side): both mappers put a read of 98,096 bases in the 98,304
+    length bucket with a base match budget of 36,864 (~3L/8), which an
+    overflow retry doubles to 73,728.  The JAX Pallas chain, the TPU's
+    kernel, refuses that budget when it is traced (its 16-bit packed
+    index: the TPU's limit, kept as it is); the port's plan takes it, and
+    the next bucket's doubled budget of 98,304, on K1's wide path, as the
+    JAX package's lax chain on the CPU takes them."""
     from bioinfo1_tpu_torch.pipeline import mapper as tmapper
     cfg = tmapper.MapperConfig()
     floor = cfg.k + cfg.w - 1
@@ -95,9 +139,11 @@ def test_doubled_budget_of_the_98304_bucket_is_refused_by_both_packages():
     with pytest.raises(ValueError, match="packed-index range"):
         jpc.lis_chain(f, f, jax.numpy.zeros((1,), jax.numpy.int32),
                       interpret=True)
-    with pytest.raises(ValueError, match="outside"):
-        tchain.chain_plan(2 * base)
     assert tchain.chain_plan(base).path == "state"
+    assert _base_budget(98304) == base
+    assert 2 * _base_budget(131072) == 98304
+    for N in (2 * base, 2 * _base_budget(131072)):
+        assert tchain.chain_plan(N).path == "wide"
 
 
 # ---- the two-level replay ---------------------------------------------------
@@ -123,9 +169,35 @@ def _direct(f, r, n):
     return lis, prev
 
 
-def _replay(f, r, n):
+def _direct_sorted(f, r, n):
+    """_direct for f ascending: the predecessors of i lie among the j with
+    f_j in (f_i - 5000, f_i), found by bisection, so the DP is exact in
+    O(N x window)."""
+    assert np.all(f[1:n] >= f[:n - 1])
+    lis = np.ones(n, np.int64)
+    prev = np.full(n, -1, np.int64)
+    lo = np.searchsorted(f[:n], f[:n] - (GAP - 1), side="left")
+    for i in range(1, n):
+        js = np.arange(lo[i], i)
+        ok = _qualifies(f, r, js, i)
+        if ok.any():
+            best = lis[js[ok]].max()
+            lis[i] = best + 1
+            prev[i] = js[ok][lis[js[ok]] == best][0]
+    return lis, prev
+
+
+# The packed state of a path: the shift of lis and the j field's mask.
+STATE = {False: (16, 0xFFFF), True: (32, 0xFFFFFFFF)}
+
+
+def _replay(f, r, n, wide=False):
     """K1's two-level DP: chunks of C, the cross phase over chunks [q_lo,
-    k) with the full pair test, then the in-chunk scan, on packed states."""
+    k) with the full pair test, then the in-chunk scan, on packed states
+    (lis << 16) | (0xFFFF - j), or with ``wide`` (lis << 32) | (0xFFFFFFFF
+    - j), whose scan reduces the key (lis << 5) | (31 - lane) of the
+    earlier columns and unpacks the best one's state from it."""
+    shift, mask = STATE[wide]
     packed = np.zeros(n, np.int64)
     prev = np.full(n, -1, np.int64)
     for k, q_lo in enumerate(tchain.chunk_q_lo(f, n)):
@@ -133,13 +205,23 @@ def _replay(f, r, n):
         js = np.arange(q_lo * C, k * C)
         ok = _qualifies(f, r, js[:, None], cols[None, :])
         ext = np.where(ok, packed[js][:, None], 0).max(axis=0, initial=0)
+        key = np.zeros(len(cols), np.int64)
         for t, i in enumerate(cols):
             inner = cols[:t]
-            cand = np.where(_qualifies(f, r, inner, i), packed[inner], 0)
-            best = max(int(cand.max(initial=0)), int(ext[t]))
-            packed[i] = (((best >> 16) + 1) << 16) | (0xFFFF - i)
-            prev[i] = 0xFFFF - (best & 0xFFFF) if best else -1
-    return packed >> 16, prev
+            if wide:
+                b = int(np.where(_qualifies(f, r, inner, i), key[:t],
+                                 0).max(initial=0))
+                cand = ((b >> 5) << 32 | (mask - (k * C + C - 1 - (b & 31)))
+                        if b else 0)
+            else:
+                cand = int(np.where(_qualifies(f, r, inner, i),
+                                    packed[inner], 0).max(initial=0))
+            best = max(cand, int(ext[t]))
+            lis = (best >> shift) + 1
+            key[t] = lis << 5 | (C - 1 - t)
+            packed[i] = lis << shift | (mask - i)
+            prev[i] = mask - (best & mask) if best else -1
+    return packed >> shift, prev
 
 
 def _endpoints(f, r, n, lis, prev):
@@ -262,10 +344,13 @@ def test_replay_equals_direct_dp_and_jax(case):
     for b in range(f.shape[0]):
         fb, rb = f[b].astype(np.int64), r[b].astype(np.int64)
         n = int(cnt[b])
-        lis, prev = _replay(fb, rb, n)
         want = _direct(fb, rb, n)
-        np.testing.assert_array_equal(lis, want[0], err_msg=f"lis row {b}")
-        np.testing.assert_array_equal(prev, want[1], err_msg=f"prev row {b}")
+        for wide in (False, True):
+            lis, prev = _replay(fb, rb, n, wide)
+            np.testing.assert_array_equal(lis, want[0],
+                                          err_msg=f"lis row {b} {wide}")
+            np.testing.assert_array_equal(prev, want[1],
+                                          err_msg=f"prev row {b} {wide}")
         got = _endpoints(fb, rb, n, lis, prev)
         for field, x in zip(FIELDS, got):
             assert x == getattr(lax, field)[b], (field, b)
@@ -295,3 +380,26 @@ def test_q_lo_never_drops_a_qualifying_pair(case):
         assert np.all(j // C >= q_lo[i // C]), (case, b)
     if case in ("matches", "repeats", "equal_f", "find_matches"):
         assert skipped > 0
+
+
+# ---- the wide state past 65,535 matches ------------------------------------
+
+@pytest.mark.parametrize("case", list(WIDE_ROWS))
+def test_wide_replay_equals_direct_dp_past_the_16_bit_index(case):
+    """The wide state on rows of 65,535-70,000 matches (torch_chain_rows),
+    each a budget K1 runs on its wide path: every match's (lis, prev)
+    equals the windowed direct DP's, and the endpoints follow."""
+    for f, r, n in WIDE_ROWS[case]():
+        assert tchain.chain_plan(len(f)).path == "wide"
+        lis, prev = _replay(f, r, n, wide=True)
+        want = _direct_sorted(f, r, n)
+        np.testing.assert_array_equal(lis, want[0], err_msg=case)
+        np.testing.assert_array_equal(prev, want[1], err_msg=case)
+        length, q_start, q_end, _, _ = _endpoints(f, r, n, lis, prev)
+        if case == "colinear":
+            assert length == n == 70000 and prev[n - 1] == n - 2
+            assert (q_start, q_end) == (1, 70000)
+        if case == "tie":
+            assert prev[TIE_COL] == TIE_J1 and TIE_J1 // C < TIE_COL // C
+            assert TIE_J2 // C == TIE_COL // C
+            assert q_start == f[TIE_J1] and length == 70000 - TIE_COL + 1

@@ -28,6 +28,7 @@ from bioinfo1_tpu_torch.ops import probe
 from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
 from bioinfo1_tpu_torch.utils import simulate
+from torch_chain_rows import TIE_J1, WIDE_ROWS, batch
 
 pytestmark = pytest.mark.cuda
 
@@ -114,12 +115,14 @@ def _chain_once(f, r, cnt):
 
 
 # Small budgets, the last N of each ops/chain.chain_plan path and the first
-# of the next, the mapper's 50 kb budget (36,864) and the largest budgets.
+# of the next, the mapper's 50 kb budget (36,864), the largest narrow
+# budgets and the wide path's first and the 196,608 bucket's base budget.
 @pytest.mark.parametrize("N,path", [
     (1, "shared"), (31, "shared"), (32, "shared"), (33, "shared"),
     (1000, "shared"), (16000, "shared"), (16001, "state"),
     (36864, "state"), (37152, "state"), (37153, "scratch"),
-    (40000, "scratch"), (65535, "scratch")])
+    (40000, "scratch"), (65535, "scratch"), (65536, "wide"),
+    (73728, "wide")])
 def test_lis_chain_kernel_every_path(dev, N, path):
     assert ch.chain_plan(N).path == path
     R = 6 if N <= 1000 else 2
@@ -159,7 +162,7 @@ def _special_chain_rows(case, N):
     return f, r, cnt
 
 
-@pytest.mark.parametrize("N", [96, 20000, 40000])
+@pytest.mark.parametrize("N", [96, 20000, 40000, 70000])
 @pytest.mark.parametrize("case", ["unsorted", "empty_batch", "one_row",
                                   "equal_f", "cross_chunk_tie"])
 def test_lis_chain_kernel_special_rows(dev, case, N):
@@ -172,6 +175,46 @@ def test_lis_chain_kernel_special_rows(dev, case, N):
     if case == "empty_batch":
         assert got.length.tolist() == [0] * 4
         assert got.q_start.tolist() == [7] * 4
+
+
+@pytest.mark.parametrize("case", list(WIDE_ROWS))
+def test_lis_chain_wide_kernel_past_the_16_bit_index(dev, case):
+    """K1's wide path where lis and the chosen j pass 65,535 (a colinear
+    run of 70,000), on an earliest-j tie across a chunk boundary at j >
+    65,535, and on counts 65,535-65,537 in one batch."""
+    f, r, cnt = (torch.from_numpy(x).to(dev)
+                 for x in batch(WIDE_ROWS[case]()))
+    assert ch.chain_plan(f.shape[1]).path == "wide"
+    got = _chain_once(f, r, cnt)
+    if case == "colinear":
+        assert got.length.tolist() == [70000]
+    if case == "tie":
+        assert got.q_start.tolist() == [10 + TIE_J1]
+
+
+@pytest.mark.parametrize("R,N", [(8, 128), (32, 1536), (8, 4096)])
+def test_lis_chain_wide_path_at_small_budgets(dev, monkeypatch, R, N):
+    """The wide instantiation takes any budget (the plan sends it only
+    those past 65,535): forced at small ones, on phase-1 style rows and
+    the special rows, it equals the plain version."""
+    planned = ch.chain_plan
+    monkeypatch.setattr(ch, "chain_plan", lambda n: dataclasses.replace(
+        planned(n), path="wide"))
+    f, r, cnt = (torch.from_numpy(x).to(dev)
+                 for x in _chain_rows(np.random.default_rng(N + 2), R, N))
+    _chain_once(f, r, cnt)
+    for case in ("unsorted", "equal_f", "cross_chunk_tie"):
+        f, r, cnt = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in _special_chain_rows(case, max(N, 96)))
+        _chain_once(f, r, cnt)
+
+
+def test_lis_chain_refuses_budgets_past_the_wide_limit(dev):
+    f = torch.zeros((1, 2 ** 21 + 1), dtype=torch.int32, device=dev)
+    before = ch.lis_chain.launches
+    with pytest.raises(ValueError, match="outside"):
+        ch.lis_chain(f, f, torch.ones(1, dtype=torch.int32, device=dev))
+    assert ch.lis_chain.launches == before
 
 
 def _pairs(rng, B, n, m, dev):

@@ -200,17 +200,24 @@ def test_parents_err_chunked_counts_cells_that_differ(smoke):
 
 def test_path_counts_reset_with_the_kernel_counts(smoke):
     from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.ops import chain as ch
     counts = bd.align_scores_banded.path_launches
+    chain_counts = ch.lis_chain.path_launches
     assert set(counts) == set(bd.PATHS)
+    assert set(chain_counts) == set(ch.CHAIN_PATHS)
     counts["cluster"], counts["scratch"] = 5, 2
+    chain_counts["wide"], chain_counts["state"] = 4, 1
     counters = smoke.reset_launches()
     assert set(counters) == set(smoke.KERNELS)
     assert all(v == 0 for v in counts.values())
-    wrapper, attr = counters["band_score_cluster"]
-    counts["cluster"] = 3
-    assert getattr(wrapper, attr) == 3
-    setattr(wrapper, attr, 0)
-    assert counts["cluster"] == 0
+    assert all(v == 0 for v in chain_counts.values())
+    for name, path, held in (("band_score_cluster", "cluster", counts),
+                             ("lis_chain_wide", "wide", chain_counts)):
+        wrapper, attr = counters[name]
+        held[path] = 3
+        assert getattr(wrapper, attr) == 3
+        setattr(wrapper, attr, 0)
+        assert held[path] == 0
 
 
 def test_smoke_imports_no_jax_and_fails_without_cuda():
