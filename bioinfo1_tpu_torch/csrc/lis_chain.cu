@@ -17,7 +17,7 @@
 // 0xFFFF ("none") for best = 0; it is kept as a uint16 (these paths take
 // N <= 65535, so j <= 65534).  The wide path (N up to kWideMaxN) packs
 // (lis << 32) | (0xFFFFFFFF - j) in 64 bits, in the same order, and keeps
-// prev as a uint32 (0xFFFFFFFF: none).
+// prev as a uint32 (0xFFFFFFFF: none) and q_lo (below) as an int32.
 //
 // What bounds it on the card: the DP is a true dependency from match to
 // match, so the time is the serial chain, not the pair tests.  The first
@@ -53,15 +53,22 @@
 //  kState    f and r read from the inputs (__ldg; L1 and L2 serve the
 //            rereads), states and prev in shared memory;
 //  kScratch  states and prev in global scratch rows of n_pad entries;
-//  kWide     64-bit states and 32-bit prev in global scratch rows (N >
-//            65535: ops/chain.chain_plan), the chunk bounds in the states'
-//            row until the DP overwrites it.  Its serial scan reduces a
-//            32-bit key, (lis << 5) | (31 - lane): lanes are in j order, so
-//            one max still picks the highest lis and the smallest j among
-//            ties; the chain end is a per-lane max, reduced once at the end.
-// q_lo is in shared memory on every path (a uint16 chunk index, so the
-// wide path ends at 65,536 chunks: kWideMaxN), and so are the chunk bounds
-// on the other three.
+//  kWide     64-bit states, 32-bit prev and q_lo as 32-bit chunk indices
+//            in global scratch rows (N > 65535: ops/chain.chain_plan); no
+//            dynamic shared memory.  The chunk bounds, and their running
+//            max, sit in the states' row until the DP overwrites it.  Its
+//            serial scan reduces a 32-bit key, (lis << 5) | (31 - lane):
+//            lanes are in j order, so one max still picks the highest lis
+//            and the smallest j among ties; the chain end is a per-lane max,
+//            reduced once at the end.  The key holds lis < 2^27, which sets
+//            kWideMaxN.  A row of K chunks would pay ~K^2 / 64 ballots
+//            finding q_lo from chunk 0 (74 M on a dense row of 2.2 M
+//            matches), so each chunk's scan starts at a 32-way search of
+//            the running max of fmax: no chunk before the first one whose
+//            running max passes fmin[k] - 5000 qualifies, so q_lo is the
+//            same.
+// On the three narrow paths q_lo is in shared memory (a uint16 chunk
+// index), and so are the chunk bounds on kShared and kState.
 
 #include <type_traits>
 
@@ -75,7 +82,9 @@ constexpr int kMaxWarps = 16;
 constexpr unsigned kJMask = 0xFFFFu;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kWideNone = 0xFFFFFFFFu;   // the wide path's "no prev"
-constexpr int kWideMaxN = 1 << 21;            // 65,536 chunks of kC
+// The wide path's largest N: lis <= N must fit the 27 bits its serial
+// scan's key leaves it; n_pad, chunk and match indices stay within int32.
+constexpr int kWideMaxN = (1 << 27) - 1;
 enum Path { kShared = 0, kState = 1, kScratch = 2, kWide = 3 };
 
 // A match's packed state and its stored predecessor, by path.
@@ -84,6 +93,9 @@ using StateT =
     std::conditional_t<kPath == kWide, unsigned long long, unsigned>;
 template <int kPath>
 using PrevT = std::conditional_t<kPath == kWide, unsigned, unsigned short>;
+// A chunk's q_lo: a uint16 in shared memory, an int32 in global scratch.
+template <int kPath>
+using QloT = std::conditional_t<kPath == kWide, int, unsigned short>;
 
 __host__ __device__ inline int pad_n(int N) { return (N + kC - 1) / kC * kC; }
 // uint16 slots of q_lo, one per chunk: whole 16-byte groups, so what
@@ -93,14 +105,15 @@ __host__ __device__ inline int qlo_slots(int N) {
 }
 
 // Dynamic shared bytes of a path (ops/chain.chain_plan mirrors this): q_lo,
-// then f, r, states and prev (kShared), states and prev (kState), the
-// chunk bounds (kScratch; on the other paths they sit in the states' space
-// until the DP starts), or nothing more (kWide).
+// then f, r, states and prev (kShared), states and prev (kState) or the
+// chunk bounds (kScratch; on kShared and kState they sit in the states'
+// space until the DP starts); none on kWide, which keeps all of it in
+// global scratch.
 size_t smem_bytes(int path, int N) {
   const size_t n_pad = pad_n(N), head = 2 * size_t(qlo_slots(N));
   if (path == kShared) return head + 14 * n_pad;
   if (path == kState) return head + 6 * n_pad;
-  if (path == kWide) return head;
+  if (path == kWide) return 0;
   return head + 8 * (n_pad / kC);
 }
 
@@ -157,6 +170,7 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
                                  const int* __restrict__ count, int R, int N,
                                  StateT<kPath>* __restrict__ packed_g,
                                  PrevT<kPath>* __restrict__ prev_g,
+                                 int* __restrict__ qlo_g,
                                  int* __restrict__ out) {
   using State = StateT<kPath>;
   using Prev = PrevT<kPath>;
@@ -189,8 +203,14 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
   const unsigned* rg =
       reinterpret_cast<const unsigned*>(r_pos) + static_cast<size_t>(row) * N;
 
-  unsigned short* qlo = reinterpret_cast<unsigned short*>(smem);
-  unsigned* tail = reinterpret_cast<unsigned*>(qlo + qlo_slots(N));
+  unsigned short* qlo_s = reinterpret_cast<unsigned short*>(smem);
+  unsigned* tail = reinterpret_cast<unsigned*>(qlo_s + qlo_slots(N));
+  QloT<kPath>* qlo;
+  if constexpr (kPath == kWide) {
+    qlo = qlo_g + static_cast<size_t>(row) * (n_pad / kC);
+  } else {
+    qlo = qlo_s;
+  }
   const unsigned* f = fg;
   const unsigned* r = rg;
   State* packed;
@@ -228,12 +248,55 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
     }
   }
   __syncthreads();
+  // kWide: the running max of fmax, after the bounds in the states' row;
+  // warp 0, 32 chunks a step.
+  int* fpm = fmax + n_pad / kC;
+  if constexpr (kPath == kWide) {
+    if (warp == 0) {
+      int carry = INT_MIN;
+      for (int base = 0; base < K; base += kC) {
+        const int q = base + lane;
+        int v = q < K ? fmax[q] : INT_MIN;
+#pragma unroll
+        for (int o = 1; o < kC; o <<= 1) {
+          const int u = __shfl_up_sync(kFull, v, o);
+          if (lane >= o) v = max(v, u);
+        }
+        v = max(v, carry);
+        if (q < K) fpm[q] = v;
+        carry = __shfl_sync(kFull, v, kC - 1);
+      }
+    }
+    __syncthreads();
+  }
   // q_lo[k]: the first qualifying chunk, 32 candidates a ballot.
   for (int k = warp; k < K; k += nwarps) {
     const long long lo_k = static_cast<long long>(fmin[k]) - kGapCap;
     const int hi_k = fmax[k];
     int q_lo = k;
-    for (int base = 0; base < k; base += kC) {
+    int start = 0;
+    if constexpr (kPath == kWide) {
+      // The first q < k whose running max passes lo_k (else k), in [lo,
+      // hi]: probes lo + t * step for lanes t, ~32 times narrower a step.
+      int lo = 0, hi = k;
+      while (hi - lo > kC) {
+        const int step = (hi - lo + kC - 1) / kC;
+        const int p = lo + lane * step;
+        const bool in = p < hi;
+        const unsigned hit = __ballot_sync(kFull, in && fpm[p] > lo_k);
+        if (hit) {
+          const int t = __ffs(hit) - 1;
+          hi = lo + t * step;
+          if (t) lo += (t - 1) * step + 1;
+        } else {
+          lo += (31 - __clz(__ballot_sync(kFull, in))) * step + 1;
+        }
+      }
+      const unsigned hit =
+          __ballot_sync(kFull, lo + lane < hi && fpm[lo + lane] > lo_k);
+      start = hit ? lo + __ffs(hit) - 1 : hi;
+    }
+    for (int base = start; base < k; base += kC) {
       const int q = base + lane;
       const unsigned hit = __ballot_sync(
           kFull, q < k && fmax[q] > lo_k && fmin[q] < hi_k);
@@ -400,8 +463,8 @@ __global__ void lis_chain_kernel(const int* __restrict__ f_pos,
 
 template <int kPath>
 int launch(const void* f, const void* r, const void* count, int R, int N,
-           void* packed_scratch, void* prev_scratch, void* out, int threads,
-           cudaStream_t stream) {
+           void* packed_scratch, void* prev_scratch, void* qlo_scratch,
+           void* out, int threads, cudaStream_t stream) {
   const size_t smem = smem_bytes(kPath, N);
   cudaError_t e = bioinfo1::allow_smem(lis_chain_kernel<kPath>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -409,7 +472,8 @@ int launch(const void* f, const void* r, const void* count, int R, int N,
       static_cast<const int*>(f), static_cast<const int*>(r),
       static_cast<const int*>(count), R, N,
       static_cast<StateT<kPath>*>(packed_scratch),
-      static_cast<PrevT<kPath>*>(prev_scratch), static_cast<int*>(out));
+      static_cast<PrevT<kPath>*>(prev_scratch),
+      static_cast<int*>(qlo_scratch), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,13 +483,15 @@ int launch(const void* f, const void* r, const void* count, int R, int N,
 // scratch, 3 wide (ops/chain.CHAIN_PATHS); packed_scratch: (R, n_pad) uint32
 // and prev_scratch: (R, n_pad) uint16 on the scratch path, (R, n_pad) uint64
 // and uint32 on the wide path (n_pad = N rounded up to 32), else unused;
-// N: at most 65535, on the wide path kWideMaxN; threads: 32-512, a multiple
-// of 32; out: (5, R) int32 rows length, q_start, q_end, t_start, t_end.
+// qlo_scratch: (R, n_pad / 32) int32 on the wide path, else unused; N: at
+// most 65535, on the wide path kWideMaxN = 2^27 - 1 (ops/chain._MAX_N);
+// threads: 32-512, a multiple of 32; out: (5, R) int32 rows length,
+// q_start, q_end, t_start, t_end.
 extern "C" int bioinfo1_lis_chain(const void* f, const void* r,
                                   const void* count, int R, int N,
                                   void* packed_scratch, void* prev_scratch,
-                                  void* out, int path, int threads,
-                                  void* stream) {
+                                  void* qlo_scratch, void* out, int path,
+                                  int threads, void* stream) {
   if (threads % 32 || threads < 32 || threads > 32 * kMaxWarps || N < 1 ||
       N > (path == kWide ? kWideMaxN : 0xFFFF))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -433,16 +499,16 @@ extern "C" int bioinfo1_lis_chain(const void* f, const void* r,
   switch (path) {
     case kShared:
       return launch<kShared>(f, r, count, R, N, packed_scratch, prev_scratch,
-                             out, threads, s);
+                             qlo_scratch, out, threads, s);
     case kState:
       return launch<kState>(f, r, count, R, N, packed_scratch, prev_scratch,
-                            out, threads, s);
+                            qlo_scratch, out, threads, s);
     case kScratch:
       return launch<kScratch>(f, r, count, R, N, packed_scratch,
-                              prev_scratch, out, threads, s);
+                              prev_scratch, qlo_scratch, out, threads, s);
     case kWide:
       return launch<kWide>(f, r, count, R, N, packed_scratch, prev_scratch,
-                           out, threads, s);
+                           qlo_scratch, out, threads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

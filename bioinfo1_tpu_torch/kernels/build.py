@@ -43,9 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: argument types (all return int = cudaError_t).
 _SIGNATURES = {
-    # f, r, count, R, N, packed_scratch, prev_scratch, out, path, threads
-    # (ops/chain.chain_plan), stream
-    "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    # f, r, count, R, N, packed_scratch, prev_scratch, qlo_scratch, out,
+    # path, threads (ops/chain.chain_plan), stream
+    "bioinfo1_lis_chain": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     # q, n, n_pad, t, m, m_eff, q_len, t_len, B, W, n_steps, mode,
     # dash_free, match, mismatch, gap, scratch, out, path, lpt,
     # reads_per_cta (the cluster size on the "cluster" path, the strip

@@ -16,7 +16,8 @@ K1 is a two-level DP over chunks of ``CHAIN_C`` matches: the predecessors
 of chunk k in finished chunks come from chunks [q_lo[k], k) only
 (``chunk_q_lo``, the kernel's rule on the host), then one warp scans the
 chunk's columns in order.  ``chain_plan`` picks where the kernel keeps a
-row's matches and states, and past 65,535 matches its wide state.
+row's matches and states, and past 65,535 matches its wide state, up to
+``_MAX_N`` matches.
 """
 
 from __future__ import annotations
@@ -31,13 +32,18 @@ from bioinfo1_tpu_torch.kernels import build
 
 _GAP_CAP = 5000
 _NARROW_MAX_N = 0xFFFF  # K1's 32-bit state packs the match index in 16 bits
-_MAX_N = 1 << 21        # the wide path's q_lo: a 16-bit index of chunks
+# The wide path's largest budget: its serial scan reduces the 32-bit key
+# (lis << 5) | (31 - lane), so lis <= N < 2^27 (csrc/lis_chain.cu kWideMaxN).
+# A bucket's base budget is 3/8 of its cap, so this takes the base budget
+# of every bucket up to 16,777,216 (reads to 16.8 Mb) and four doublings.
+_MAX_N = (1 << 27) - 1
 CHAIN_C = 32            # K1's chunk: one match per lane of a warp
 CHAIN_THREADS = 512     # threads per CTA (one CTA per row)
 # Storage paths of csrc/lis_chain.cu, by their C number: f, r, states and
 # prev in shared memory; f and r read from the inputs, states and prev in
-# shared memory; states and prev in global scratch rows; 64-bit states and
-# 32-bit prev in global scratch rows (budgets past _NARROW_MAX_N).
+# shared memory; states and prev in global scratch rows; 64-bit states,
+# 32-bit prev and 32-bit q_lo in global scratch rows (budgets past
+# _NARROW_MAX_N).
 CHAIN_PATHS = ("shared", "state", "scratch", "wide")
 
 
@@ -55,16 +61,16 @@ class ChainPlan:
 def chain_plan(N: int) -> ChainPlan:
     """K1's storage path for a match budget N: up to 65,535 the first of
     shared (14 bytes a match), state (6) and scratch (the chunk bounds only)
-    whose shared bytes fit build.SMEM_LIMIT; past it wide (no more shared
-    bytes).  Every path also holds q_lo, 2 bytes a chunk in whole 16-byte
-    groups."""
+    whose shared bytes fit build.SMEM_LIMIT, each also holding q_lo, 2 bytes
+    a chunk in whole 16-byte groups; past it, up to _MAX_N, wide (no
+    dynamic shared memory)."""
     if not 1 <= N <= _MAX_N:
         raise ValueError(f"chain_plan: match budget {N} outside [1, {_MAX_N}]")
     n_pad = -(-N // CHAIN_C) * CHAIN_C
     chunks = n_pad // CHAIN_C
     head = 2 * (-(-chunks // 8) * 8)
     if N > _NARROW_MAX_N:
-        return ChainPlan("wide", CHAIN_THREADS, head)
+        return ChainPlan("wide", CHAIN_THREADS, 0)
     for path, nbytes in (("shared", head + 14 * n_pad),
                          ("state", head + 6 * n_pad)):
         if nbytes <= build.SMEM_LIMIT:
@@ -77,20 +83,37 @@ def chunk_q_lo(f: np.ndarray, count: int) -> np.ndarray:
     valid: per chunk k of CHAIN_C matches, q_lo[k] = the first chunk q < k
     with fmax[q] > fmin[k] - 5000 and fmin[q] < fmax[k] (f min / max over
     the valid matches of a chunk), else k.  No chunk before q_lo[k] holds a
-    predecessor of a match in chunk k, whatever the order of f."""
+    predecessor of a match in chunk k, whatever the order of f.  As the
+    wide path does, the search for q starts at ``chunk_scan_start``."""
+    fmin, fmax = _chunk_bounds(f, count)
+    start = chunk_scan_start(fmin, fmax)
+    q_lo = np.arange(len(fmin))
+    for k in range(len(fmin)):
+        ok = np.flatnonzero((fmax[start[k]:k] > fmin[k] - _GAP_CAP)
+                            & (fmin[start[k]:k] < fmax[k]))
+        if len(ok):
+            q_lo[k] = start[k] + ok[0]
+    return q_lo
+
+
+def _chunk_bounds(f: np.ndarray, count: int) -> tuple:
+    """(fmin, fmax) over the valid matches of each chunk of CHAIN_C."""
     n = int(count)
     x = np.asarray(f[:n], np.int64)
-    bounds = [(x[q:q + CHAIN_C].min(), x[q:q + CHAIN_C].max())
-              for q in range(0, n, CHAIN_C)]
-    fmin = np.array([b[0] for b in bounds], np.int64)
-    fmax = np.array([b[1] for b in bounds], np.int64)
-    q_lo = np.arange(len(bounds))
-    for k in range(len(bounds)):
-        ok = np.flatnonzero((fmax[:k] > fmin[k] - _GAP_CAP)
-                            & (fmin[:k] < fmax[k]))
-        if len(ok):
-            q_lo[k] = ok[0]
-    return q_lo
+    pad = -n % CHAIN_C
+    lo = np.concatenate([x, np.full(pad, np.iinfo(np.int64).max)])
+    hi = np.concatenate([x, np.full(pad, np.iinfo(np.int64).min)])
+    return (lo.reshape(-1, CHAIN_C).min(axis=1),
+            hi.reshape(-1, CHAIN_C).max(axis=1))
+
+
+def chunk_scan_start(fmin: np.ndarray, fmax: np.ndarray) -> np.ndarray:
+    """Where K1's wide path starts each chunk's q_lo scan: the first chunk
+    q < k whose running max of fmax passes fmin[k] - 5000, else k.  No
+    chunk before it has fmax[q] > fmin[k] - 5000, so none qualifies."""
+    run_max = np.maximum.accumulate(fmax)
+    start = np.searchsorted(run_max, fmin - _GAP_CAP, side="right")
+    return np.minimum(start, np.arange(len(fmin)))
 
 
 @dataclasses.dataclass
@@ -169,7 +192,8 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
     out = torch.empty((5, R), dtype=torch.int32, device=f_pos.device)
     if R:
         plan = chain_plan(N)
-        packed = prev = None        # the scratch and wide paths' state rows
+        # The scratch and wide paths' state rows, the wide path's q_lo rows.
+        packed = prev = q_lo = None
         if plan.path in ("scratch", "wide"):
             n_pad = -(-N // CHAIN_C) * CHAIN_C
             wide = plan.path == "wide"
@@ -177,12 +201,16 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
                                  dtype=torch.int64 if wide else torch.int32)
             prev = torch.empty((R, n_pad), device=f_pos.device,
                                dtype=torch.int32 if wide else torch.int16)
+            if wide:
+                q_lo = torch.empty((R, n_pad // CHAIN_C), device=f_pos.device,
+                                   dtype=torch.int32)
         build.launch(
             lis_chain, "bioinfo1_lis_chain",
             f_pos.data_ptr(), r_pos.data_ptr(), count.data_ptr(), R, N,
             0 if packed is None else packed.data_ptr(),
             0 if prev is None else prev.data_ptr(),
-            out.data_ptr(), CHAIN_PATHS.index(plan.path), plan.threads,
+            0 if q_lo is None else q_lo.data_ptr(), out.data_ptr(),
+            CHAIN_PATHS.index(plan.path), plan.threads,
             torch.cuda.current_stream(f_pos.device).cuda_stream,
             device=f_pos.device)
         with _path_lock:

@@ -1116,7 +1116,11 @@ class Mapper:
                         oom_retry.discard(i)
                         results[i] = res[loc]
             pending = next_pending
-            if attempts >= 24:      # safety: ~16M matches per read
+            # Safety: 24 rounds, as the JAX package (its "~16M matches per
+            # read").  An overflow round at least doubles a read's budget;
+            # K1 refuses budgets past ops/chain._MAX_N (2^27 - 1 matches a
+            # row), so a read that needs more faults before this cap.
+            if attempts >= 24:
                 break
         cells = 0.0
         n_mapped = 0

@@ -12,7 +12,8 @@ list of ``{"name", "flags", "sha256"}``; a run is the CLI with its flags on
 the recipe's reference and reads, and its hash is that of its stdout.  A
 run with ``"reads"`` (indices into the recipe's reads) maps those alone
 (``tests/torch_golden_ultra.json``: one read of ~150 kb and one of ~250 kb,
-each a run of its own).
+each a run of its own; ``tests/torch_golden_4mb.json``: one read of ~4.2 Mb,
+a genomic fragment inside random sequence).
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ def load(path: str) -> dict:
 def records(recipe: dict) -> Tuple[str, List[Tuple[str, str]]]:
     """(genome, read records) of the recipe: a random genome, ONT-profile
     reads of ``lengths``, then, where the recipe names them, near-exact
-    reads of ``accurate_lengths`` and one read with a deletion
-    (``deletion``: start, length kept on each side, bases left out), all
-    from one generator seeded with ``seed``."""
+    reads of ``accurate_lengths``, one read with a deletion (``deletion``:
+    start, length kept on each side, bases left out) and reads of random
+    sequence around an ONT-profile read of the genome (``embedded``: name,
+    total length, fragment length; the random flanks split what the
+    fragment's read leaves), all from one generator seeded with ``seed``."""
     rng = np.random.default_rng(recipe["seed"])
     genome = sim.random_genome(recipe["genome_len"], rng)
     recs = sim.simulate_reads(genome, recipe["lengths"], rng)
@@ -51,6 +54,15 @@ def records(recipe: dict) -> Tuple[str, List[Tuple[str, str]]]:
         s0, keep, gap = d["start"], d["keep"], d["gap"]
         recs.append((d["name"], g[s0:s0 + keep]
                      + g[s0 + keep + gap:s0 + 2 * keep + gap]))
+    for e in recipe.get("embedded", ()):
+        (_, core), = sim.simulate_reads(genome, [e["fragment"]], rng)
+        left = (e["length"] - len(core)) // 2
+        right = e["length"] - len(core) - left
+        recs.append((e["name"],
+                     sim.random_genome(left, rng).tobytes().decode("latin1")
+                     + core
+                     + sim.random_genome(right, rng).tobytes().decode(
+                         "latin1")))
     return g, recs
 
 

@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port (bioinfo1_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
-                           --chain-trial | --chain-profile | --full-trial |
+                           --chain-trial | --chain-profile |
+                           --wide-trial [--parent DIR] | --full-trial |
                            --strip-trial | --split-trial |
                            --shard-trial [--genome-mb N] | --process-trial]
 
@@ -18,7 +19,11 @@ run):
      path on the rows of the ~150 kb read's fused call, N = 73,728, of the
      ~250 kb read's largest call, N = 196,608, and on a colinear row of
      70,000, whose lis and predecessors pass 65,535, timed beside a flat
-     row of the same pair tests: the pointer chase's share), K2 banded
+     row of the same pair tests: the pointer chase's share; past 2,097,152
+     matches on the rows of the 4.2 Mb read's fused call, N = 2,359,296,
+     and on a colinear row of 2,200,000, whose q_lo pass 65,535, held to
+     its closed form, its prologue, DP and chase timed apart by a
+     measurement build of K1, chain_profile_split), K2 banded
      score, K3 full score (every mode on one strip, B = 64, n = 512, and
      on several, B = 32, n = 4,608; a one-row last strip; more reads than
      fill whole CTAs; each row naming its ops/align.full_plan rows per
@@ -125,6 +130,13 @@ run):
      and strips launched, faults 0, each PAF at its pinned sha256 (the JAX
      CLI's on the CPU for the ~150 kb read, the port's CPU run's for the
      ~250 kb one).
+  2W. match budgets past 2,097,152 on the main path (ROADMAP C12,
+     closed): a read of 4,200,000 bases (tests/torch_golden_4mb.json, the
+     6,291,456 bucket, base match budget 2,359,296) alone, in-process, a
+     fresh and an adapted pass: K1's wide path launched, faults 0, one
+     line at the sha256 pinned from the port's CLI on the CPU; the first
+     golden recipe's reads with every match budget forced to 4,194,304:
+     every K1 call wide, faults 0, the default run's pinned sha256.
   2r. bench_torch.measure_repeat() at full size (a 4,641,652 bp
      repeat-structured genome, 1,026 + 1,026 reads, score-only and -c)
      with its reads/s and counters, then bench_torch.measure_sol(): K6's
@@ -165,7 +177,12 @@ run):
   rows at R = 1 and 512, the 50 kb reads' rows, the pointer chase's share,
   every threads-per-CTA choice) and the run ends there; --chain-profile
   runs it on K1's measurement build, which also counts the SM clocks of
-  each phase of a one-row call.  With --full-trial phase 1f times K3
+  each phase of a one-row call.  With --wide-trial phase 1x times K1's
+  wide path past 2,097,152 matches (phase_wide_trial: the colinear row's
+  prologue with and without the q_lo scan start, the 4.2 Mb read through
+  the CLI; with --parent DIR, an older tree's checkout, that tree's CLI on
+  the read and its K1 paired with this one's in one process) and the run
+  ends there.  With --full-trial phase 1f times K3
   alone (the kernel table's shape, the 8 kb bucket's fused call captured
   from a run like phase 2g's -g 1 one, 16 reads of 50 kb; every
   rows-per-thread choice) and the run ends there; like the other trials
@@ -281,6 +298,20 @@ GOLDEN = os.path.join(REPO, "tests", "torch_golden.json")   # phase 2a
 # this second golden recipe, pinned from a CLI on the CPU (the JAX
 # package's, or the port's where the JAX CLI does not finish).
 GOLDEN_ULTRA = os.path.join(REPO, "tests", "torch_golden_ultra.json")
+# Phase 2W's read past 4.19 Mb: 4,200,000 bases, a genomic fragment inside
+# random sequence, in the 6,291,456 length bucket, whose base match budget
+# (2,359,296) is past the 2,097,152 of K1's wide path while it kept q_lo in
+# shared memory (ROADMAP C12, closed); pinned from the port's CLI on the
+# CPU.  On the card, before: two faults (the fused step and the host path
+# each refused the budget) and no line; now C12_OUTCOME.
+GOLDEN_4MB = os.path.join(REPO, "tests", "torch_golden_4mb.json")
+C12_OUTCOME = {"reads": [4200000], "faults": 0, "paf_lines": 1}
+# Phase 2W forces every match budget of the first golden recipe's reads to
+# this (MapperConfig.initial_match_budget): every K1 call past 2,097,152.
+FORCED_BUDGET = 1 << 22
+# K1's wide path on a colinear row of this many matches (phase 1): 68,750
+# chunks, their q_lo past 65,535; held to its closed form.
+WIDE_COLINEAR_N = 2_200_000
 # K1's wide path on a colinear row of this many matches (phase 1): lis and
 # the chosen predecessors pass 65,535, and the chase walks every match.
 WIDE_CHASE_N = 70000
@@ -589,6 +620,7 @@ def phase_kernels(dev) -> dict:
     from bioinfo1_tpu_torch.ops import trace as tr
     rng = np.random.default_rng(1)
     rows = {name: [] for name in KERNELS}
+    chain_split = chain_profile_split()     # nvcc in the background
 
     for R, N in CHAIN_SHAPES:
         f, r, cnt = chain_inputs(rng, R, N, dev)
@@ -790,6 +822,17 @@ def phase_kernels(dev) -> dict:
             f"lis_chain_wide {what} rows R={f.shape[0]} N={f.shape[1]}", f,
             r, cnt, 3))
     rows["lis_chain_wide"].append(wide_chase_row(dev))
+    # Past 2,097,152 matches: the rows of the 4.2 Mb read's fused call (a
+    # few thousand matches in a budget of 2,359,296), then a colinear row of
+    # 2,200,000, its prologue split from its DP by K1's measurement build.
+    f, r, cnt = chain_rows_4mb(dev)[0]
+    check(f.shape[1] == 2359296, f"the 4.2 Mb read's first K1 call has "
+                                 f"N = {f.shape[1]}, not 2,359,296")
+    rows["lis_chain_wide"].append(chain_row(
+        f"lis_chain_wide 4.2Mb rows R={f.shape[0]} N={f.shape[1]}", f, r,
+        cnt, 3))
+    del f, r, cnt
+    rows["lis_chain_wide"].append(wide_colinear_row(dev, chain_split))
     rows["cluster_occupancy"] = cluster_occupancy()
     return rows
 
@@ -828,6 +871,101 @@ def wide_chase_row(dev) -> dict:
     row["chase_ms"] = row["ms"] - row["flat_ms"]
     row["chase_ns_per_step"] = 1e6 * row["chase_ms"] / (N - 1)
     return row
+
+
+def wide_colinear_row(dev, split) -> dict:
+    """K1's wide path on a colinear row of WIDE_COLINEAR_N matches (f = r =
+    1..N, q_lo past 65,535): held to its closed form (each match's unique
+    best predecessor is the one before it, so length N from j = 0 to N -
+    1; the O(N^2) plain version is out of reach), timed, and split by
+    ``split`` (chain_profile_split) into prologue, DP and chase."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    N = WIDE_COLINEAR_N
+    up = torch.arange(1, N + 1, dtype=torch.int32, device=dev)[None]
+    cnt = torch.full((1,), N, dtype=torch.int32, device=dev)
+    got = ch.lis_chain(up, up, cnt)
+    ends = torch.tensor([1, N], dtype=torch.int32, device=dev)
+    want = ch.ChainResult(cnt, ends[:1], ends[1:], ends[:1], ends[1:])
+    err = max_abs_err(got, want)
+    check(err == 0, f"colinear row of {N}: not its closed form")
+    row = {"call": f"lis_chain_wide colinear R=1 N={N}",
+           "ms": cuda_ms(lambda: ch.lis_chain(up, up, cnt), 2),
+           "plain_ms": None, "max_abs_err": err, "against": "closed form"}
+    row.update(dataclasses.asdict(ch.chain_plan(N)))
+    check(row["path"] == "wide", f"N = {N} is not on the wide path")
+    row.update(chain_work(up, up, cnt))
+    row["profile"] = split(up, up, cnt, got)
+    return row
+
+
+def chain_profile_split(source: str = None, tag: str = "k1"):
+    """Starts nvcc on K1's source alone (``source``: default csrc/
+    lis_chain.cu) with BIOINFO1_CHAIN_PROFILE, into a library of its own
+    under WORK, in the background; returns ``split(f, r, cnt, want)``,
+    which waits for the build, runs that library's K1 once on one wide row
+    and gives block 0's SM clocks by phase as ms of its globaltimer time:
+    the prologue (chunk bounds, q_lo), the DP (cross phase, fold, serial
+    scan, stores) and the end of the row (the chase), its outputs checked
+    against ``want``.  Not the package's library: its launches count
+    nowhere."""
+    import ctypes
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import chain as ch
+    src = source or os.path.join(build.CSRC, "lis_chain.cu")
+    os.makedirs(WORK, exist_ok=True)
+    lib_path = os.path.join(WORK, f"libchain_profile_{tag}.so")
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-DBIOINFO1_CHAIN_PROFILE",
+         "-I", build.CSRC, "-shared", src, "-o", lib_path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    names = CHAIN_PROFILE_COUNTERS
+    lib = []
+
+    def split(f, r, cnt, want) -> dict:
+        if not lib:
+            _, err = proc.communicate()
+            check(proc.returncode == 0, f"nvcc of K1's measurement build "
+                                        f"failed: {err[-2000:]}")
+            lib.append(ctypes.CDLL(lib_path))
+            lib[0].bioinfo1_lis_chain.argtypes = build._SIGNATURES[
+                "bioinfo1_lis_chain"]
+            lib[0].bioinfo1_chain_profile.argtypes = [ctypes.c_void_p]
+            for fn in (lib[0].bioinfo1_lis_chain,
+                       lib[0].bioinfo1_chain_profile):
+                fn.restype = ctypes.c_int
+        R, N = f.shape
+        check(R == 1 and ch.chain_plan(N).path == "wide",
+              "the split takes one row on the wide path")
+        n_pad = -(-N // ch.CHAIN_C) * ch.CHAIN_C
+        packed = torch.empty((R, n_pad), dtype=torch.int64, device=f.device)
+        prev = torch.empty((R, n_pad), dtype=torch.int32, device=f.device)
+        q_lo = torch.empty((R, n_pad // ch.CHAIN_C), dtype=torch.int32,
+                           device=f.device)
+        out = torch.empty((5, R), dtype=torch.int32, device=f.device)
+        buf = (ctypes.c_ulonglong * len(names))()
+        torch.cuda.synchronize()
+        check(lib[0].bioinfo1_chain_profile(ctypes.addressof(buf)) == 0,
+              "bioinfo1_chain_profile failed")
+        e = lib[0].bioinfo1_lis_chain(
+            f.data_ptr(), r.data_ptr(), cnt.data_ptr(), R, N,
+            packed.data_ptr(), prev.data_ptr(), q_lo.data_ptr(),
+            out.data_ptr(), ch.CHAIN_PATHS.index("wide"), ch.CHAIN_THREADS,
+            None)
+        torch.cuda.synchronize()
+        check(e == 0, f"K1's measurement build: CUDA error {e}")
+        check(lib[0].bioinfo1_chain_profile(ctypes.addressof(buf)) == 0,
+              "bioinfo1_chain_profile failed")
+        got = dict(zip(names, buf))
+        check(max_abs_err(ch.ChainResult(*out.unbind(0)), want) == 0,
+              "K1's measurement build differs from K1")
+        ms = got["ns"] / 1e6 / got["total"]     # per SM clock
+        return {"prologue_ms": ms * got["prologue"],
+                "dp_ms": ms * sum(got[k] for k in ("cross", "fold", "serial",
+                                                   "store_barrier")),
+                "chase_ms": ms * got["end_of_row"], "ms": got["ns"] / 1e6,
+                "ghz": got["total"] / got["ns"], "clocks": got}
+
+    return split
 
 
 W_50K = 25088         # the 50 kb reads' band (7 CTAs of 448 threads)
@@ -1164,6 +1302,16 @@ def chain_rows_ultra(dev, run: int = 0) -> list:
                        golden.run_records(recs, pin["runs"][run]), dev)
 
 
+def chain_rows_4mb(dev) -> list:
+    """chain_rows_50k for GOLDEN_4MB's read of 4,200,000 bases: its first
+    fused call asks K1 for the 6,291,456 bucket's base budget, 2,359,296."""
+    from bioinfo1_tpu_torch.utils import golden
+    pin = golden.load(GOLDEN_4MB)
+    genome, recs = golden.records(pin["recipe"])
+    return chain_calls([(pin["recipe"]["ref_name"], genome)],
+                       golden.run_records(recs, pin["runs"][0]), dev)
+
+
 def chain_calls(refs, recs, dev) -> list:
     """The inputs of every ``lis_chain`` call of one score-only
     ``Mapper.map_records`` run of ``recs`` on ``refs``, captured on the way
@@ -1309,6 +1457,14 @@ def phase_chain_trial(dev) -> dict:
                            for c in calls], "sass": census}
 
 
+# K1's measurement build's counters (csrc/lis_chain.cu g_chain_profile):
+# SM clocks of block 0's row by phase, its total, its globaltimer ns, its
+# chunks.
+CHAIN_PROFILE_COUNTERS = ("prologue", "cross", "fold", "serial",
+                          "store_barrier", "end_of_row", "total", "ns",
+                          "chunks")
+
+
 def chain_profile_reader():
     """With the measurement build of K1 (BIOINFO1_CHAIN_PROFILE among
     BIOINFO1_NVCC_DEFINES, set by --chain-profile), a function that reads
@@ -1321,8 +1477,7 @@ def chain_profile_reader():
         return None
     fn = build.library().bioinfo1_chain_profile
     fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    names = ("prologue", "cross", "fold", "serial", "store_barrier",
-             "end_of_row", "total", "ns", "chunks")
+    names = CHAIN_PROFILE_COUNTERS
 
     def read():
         buf = (ctypes.c_ulonglong * len(names))()
@@ -2749,6 +2904,214 @@ def golden_ultra(dev) -> dict:
     return {"runs": runs, "launches": launches}
 
 
+def phase_c12(dev) -> dict:
+    """Phase 2W: match budgets past 2,097,152 on the main path (ROADMAP
+    C12, closed).  (a) GOLDEN_4MB's read of 4,200,000 bases alone,
+    in-process, score-only, a fresh and an adapted pass: its fused call
+    asks K1 for 2,359,296 matches a row; K1's wide path must launch and
+    each pass give C12_OUTCOME and the pinned sha256 (the port's CLI on
+    the CPU).  (b) the first golden recipe's reads (GOLDEN) with every
+    match budget forced to FORCED_BUDGET (MapperConfig.
+    initial_match_budget): every K1 call on the wide path (its narrow
+    paths never launch), faults 0, the PAF the default run's pinned
+    sha256."""
+    from bioinfo1_tpu_torch.ops import chain as ch
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    from bioinfo1_tpu_torch.utils import golden
+
+    def one_pass(mapper, recs, sha, what):
+        before = mapper.counters.as_dict()
+        reset_launches()
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            lines = mapper.map_records(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = mapper.counters.as_dict()
+        res = {"pass": what, "reads": [len(s) for _, s in recs],
+               "faults": after["faults"] - before["faults"],
+               "paf_lines": len(lines),
+               "sha256": golden.sha256("".join(x + "\n" for x in lines)),
+               "k1_path_launches": dict(ch.lis_chain.path_launches),
+               "budget_retries": after["budget_retries"]
+               - before["budget_retries"],
+               "errors": sorted(set(err.getvalue().splitlines()))[:4],
+               "wall_s": wall}
+        check(res["sha256"] == sha, f"{what}: sha256 {res['sha256']}, not "
+                                    f"the pinned {sha}")
+        check(res["faults"] == 0, f"{what}: a batch raised")
+        check(res["k1_path_launches"]["wide"] >= 1,
+              f"{what}: K1's wide path never launched")
+        return res
+
+    runs = []
+    pin = golden.load(GOLDEN_4MB)
+    genome, recs = golden.records(pin["recipe"])
+    reads = golden.run_records(recs, pin["runs"][0])
+    mapper = Mapper([(pin["recipe"]["ref_name"], genome)], MapperConfig(),
+                    device=dev)
+    mapper.device_index()
+    for pass_ in ("fresh", "adapted"):
+        runs.append(one_pass(mapper, reads, pin["runs"][0]["sha256"],
+                             f"4.2 Mb read, {pass_}"))
+        got = {k: runs[-1][k] for k in C12_OUTCOME}
+        check(got == C12_OUTCOME, f"ROADMAP C12: the 4.2 Mb read gave "
+                                  f"{got}, not {C12_OUTCOME}")
+    del mapper, genome, recs, reads
+    torch.cuda.empty_cache()
+    pin = golden.load(GOLDEN)
+    genome, recs = golden.records(pin["recipe"])
+    (sha,) = [r["sha256"] for r in pin["runs"] if r["flags"] == ["-a",
+                                                                 "global"]]
+    mapper = Mapper([(pin["recipe"]["ref_name"], genome)],
+                    MapperConfig(initial_match_budget=FORCED_BUDGET),
+                    device=dev)
+    runs.append(one_pass(mapper, recs, sha,
+                         f"golden reads at budget {FORCED_BUDGET}"))
+    narrow = {k: v for k, v in runs[-1]["k1_path_launches"].items()
+              if k != "wide"}
+    check(not any(narrow.values()), f"golden reads at budget "
+                                    f"{FORCED_BUDGET}: K1's narrow paths "
+                                    f"launched ({narrow})")
+    del mapper
+    torch.cuda.empty_cache()
+    return {"phase": "2W", "runs": runs}
+
+
+# csrc/lis_chain.cu's line that starts each chunk's q_lo scan at the wide
+# path's search (--wide-trial times the prologue without it).
+SCAN_START = "start = hit ? lo + __ffs(hit) - 1 : hi;"
+
+
+def phase_wide_trial(dev, parent: str = None) -> dict:
+    """Phase 1x (--wide-trial [--parent DIR]): K1's wide path past
+    2,097,152 matches.  The colinear row of WIDE_COLINEAR_N split into
+    prologue, DP and chase (chain_profile_split) by this tree's K1 and by a
+    copy of it whose q_lo scans start at chunk 0 (SCAN_START removed);
+    GOLDEN_4MB's read through this tree's CLI on the card and, with
+    ``parent``, through the CLI of the tree there (the outcome before a
+    change: PAF lines, sha256, the mapper's faults, its errors); and with
+    ``parent`` K1 of both trees in one process, alternating, on the kernel
+    table's shape, the 50 kb reads' rows, the ~150 kb read's rows and the
+    colinear row of 70,000 (the older library built by its own
+    kernels/build.py, called through its own signature)."""
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import chain as ch
+    from bioinfo1_tpu_torch.utils import golden
+    res = {"phase": "1x"}
+    src = open(os.path.join(build.CSRC, "lis_chain.cu")).read()
+    check(SCAN_START in src, "csrc/lis_chain.cu has no SCAN_START line")
+    from0 = os.path.join(WORK, "lis_chain_from0.cu")
+    with open(from0, "w") as fh:
+        fh.write(src.replace(SCAN_START, "start = 0;"))
+    splits = {"k1": chain_profile_split(),
+              "from0": chain_profile_split(from0, "from0")}
+    N = WIDE_COLINEAR_N
+    up = torch.arange(1, N + 1, dtype=torch.int32, device=dev)[None]
+    cnt = torch.full((1,), N, dtype=torch.int32, device=dev)
+    want = ch.lis_chain(up, up, cnt)
+    res["colinear"] = {name: [split(up, up, cnt, want) for _ in range(2)]
+                       for name, split in splits.items()}
+    del up, cnt, want
+    pin = golden.load(GOLDEN_4MB)
+    ref, reads = golden.write_inputs(pin["recipe"],
+                                     os.path.join(WORK, "golden_4mb"),
+                                     pin["runs"][0])
+    res["read_4mb"] = {}
+    for name, root in (("this", REPO), ("parent", parent)):
+        if root is None:
+            continue
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bioinfo1_tpu_torch.cli", "--profile",
+             ref, reads], cwd=root, capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, BIOINFO1_BAND_CACHE="0"))
+        lines = proc.stdout.splitlines()
+        res["read_4mb"][name] = {
+            "root": root, "rc": proc.returncode, "paf_lines": len(lines),
+            "sha256": golden.sha256(proc.stdout),
+            "faults": (parse_profile(proc.stderr)["mapper"]["faults"]
+                       if proc.returncode == 0 else None),
+            "errors": sorted({x for x in proc.stderr.splitlines()
+                              if x.startswith("ERROR")})[:4],
+            "wall_s": time.perf_counter() - t0}
+    got = res["read_4mb"]["this"]
+    check(got["rc"] == 0 and got["faults"] == 0
+          and got["sha256"] == pin["runs"][0]["sha256"],
+          f"this tree's CLI on the 4.2 Mb read: {got}")
+    if parent is not None:
+        res["paired"] = paired_chain(dev, parent)
+    return res
+
+
+def paired_chain(dev, parent: str) -> dict:
+    """K1 of the tree at ``parent`` and of this one on the same inputs in
+    one process: each output equal to this tree's wrapper's, then six
+    rounds of each, the order alternating; ms of each round."""
+    import ctypes
+    import importlib.util
+    from bioinfo1_tpu_torch.kernels import build
+    from bioinfo1_tpu_torch.ops import chain as ch
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(parent, "bioinfo1_tpu_torch", "kernels",
+                                     "build.py"))
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    old.ensure_built()
+    fns = {}
+    for name, mod in (("parent", old), ("this", build)):
+        fn = ctypes.CDLL(mod.LIB_PATH).bioinfo1_lis_chain
+        fn.argtypes = mod._SIGNATURES["bioinfo1_lis_chain"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    rng = np.random.default_rng(1)
+    shapes = {"R=512 N=1536": chain_inputs(rng, *CHAIN_SHAPES[0], dev),
+              "50kb": chain_rows_50k(dev)[0],
+              "150kb": chain_rows_ultra(dev, 0)[0],
+              "colinear N=70000": chase_rows(WIDE_CHASE_N, dev)["chain"]}
+    out = {}
+    for shape, (f, r, cnt) in shapes.items():
+        R, N = f.shape
+        plan = ch.chain_plan(N)
+        n_pad = -(-N // ch.CHAIN_C) * ch.CHAIN_C
+        wide = plan.path == "wide"
+        rows = [torch.empty((R, n_pad), device=dev,
+                            dtype=torch.int64 if wide else torch.int32),
+                torch.empty((R, n_pad), device=dev,
+                            dtype=torch.int32 if wide else torch.int16),
+                torch.empty((R, n_pad // ch.CHAIN_C), device=dev,
+                            dtype=torch.int32)]
+        ends = torch.empty((5, R), dtype=torch.int32, device=dev)
+        want = ch.lis_chain(f, r, cnt)
+        runs = {}
+        for name, fn in fns.items():
+            # The older entry point has no q_lo row (11 arguments).
+            scratch = [x.data_ptr() for x in rows][:len(fn.argtypes) - 9]
+            args = [f.data_ptr(), r.data_ptr(), cnt.data_ptr(), R, N,
+                    *scratch, ends.data_ptr(),
+                    ch.CHAIN_PATHS.index(plan.path), plan.threads, None]
+
+            def run(fn=fn, args=args, name=name):
+                check(fn(*args) == 0, f"{name} K1 failed")
+            run()
+            torch.cuda.synchronize()
+            check(max_abs_err(ch.ChainResult(*ends.unbind(0)), want) == 0,
+                  f"{name} K1 differs on {shape}")
+            runs[name] = run
+        reps = 5 if N > 65535 else 20
+        times = {name: [] for name in runs}
+        for k in range(6):
+            for name in (("parent", "this") if k % 2 == 0
+                         else ("this", "parent")):
+                times[name].append(cuda_ms(runs[name], reps))
+        out[shape] = {"path": plan.path,
+                      **{name: {"median_ms": statistics.median(v),
+                                "ms": v} for name, v in times.items()}}
+    return out
+
+
 def bucket_top_faults(mapper) -> dict:
     """ROADMAP C11: two reads of fragments of 100,000 bases that land in
     the 98,304 length bucket (98.1-98.2 kb), mapped as planned: the faults
@@ -3213,6 +3576,9 @@ def main() -> int:
     walk_trial = "--walk-trial" in sys.argv[1:]
     chain_profile = "--chain-profile" in sys.argv[1:]
     chain_trial = chain_profile or "--chain-trial" in sys.argv[1:]
+    wide_trial = "--wide-trial" in sys.argv[1:]
+    parent = (os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
+              if "--parent" in sys.argv[1:] else None)
     full_trial = "--full-trial" in sys.argv[1:]
     strip_trial = "--strip-trial" in sys.argv[1:]
     split_trial = "--split-trial" in sys.argv[1:]
@@ -3266,6 +3632,9 @@ def main() -> int:
     if chain_trial:
         emit(phase_chain_trial(dev))
         return 0
+    if wide_trial:
+        emit(phase_wide_trial(dev, parent))
+        return 0
     if full_trial:
         emit(phase_full_trial(dev))
         return 0
@@ -3318,6 +3687,7 @@ def main() -> int:
     emit(p2l)
     p2u = phase_ultralong(dev)
     emit(p2u)
+    emit(phase_c12(dev))
     p2r = phase_repeat_and_roofline(dev)
     emit(p2r)
     torch.cuda.empty_cache()

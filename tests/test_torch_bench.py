@@ -101,6 +101,19 @@ def test_bench_tiny_cpu_prints_every_metric():
         assert "t_host_s" in extra[k] and "realign_reroutes" in extra[k]
 
 
+@pytest.mark.parametrize("rate", [17.2260, 17.2275, 17.2283, 11.151, 0.004])
+def test_ratios_divide_the_printed_rates(rate):
+    """A *_vs_baseline ratio is that of the printed rate to the pinned
+    base: a rate of 17.226-17.228 reads/s prints as 17.23, whose ratio to
+    11.151 rounds to 1.55 where the unrounded rate's rounds to 1.54."""
+    import bench_torch
+    shown, ratio = bench_torch.printed_ratio(rate, 11.151)
+    assert shown == round(rate, 2)
+    assert ratio == round(shown / 11.151, 2)
+    if 17.225 <= rate < 17.2283:
+        assert ratio == 1.55 != round(rate / 11.151, 2)
+
+
 def test_scaling_workload_is_the_tools_draw_for_draw(tmp_path):
     """measure_scaling's reads file and genome are
     tools/measure_scaling.py's and tools/scaling_worker.py's, byte for

@@ -9,14 +9,20 @@ earlier columns of its chunk and that cross-chunk best.  ``_replay`` does
 the same in numpy.  It must give every match the (lis, prev) of a direct
 O(N^2) DP, and endpoints equal to the JAX package's lax ``chain.lis_chain``
 and its Pallas kernel (``pallas_chain.lis_chain_sorted`` in interpret mode).
-``q_lo`` must never drop a qualifying pair.  ``chain_plan`` is held to its
-paths and their shared-memory bytes.
+``q_lo`` must never drop a qualifying pair, and the wide path's scan start
+(``chunk_scan_start``) must leave it as the direct rule gives it.
+``chain_plan`` is held to its paths and their shared-memory bytes, and to
+the ceiling of the wide path: every budget of the mapper's ladder up to the
+16,777,216 length bucket.
 
 Past 65,535 matches K1 takes its wide path: states (lis << 32) | (0xFFFFFFFF
 - j) in 64 bits, and a serial scan that reduces the 32-bit key (lis << 5) |
 (31 - lane).  ``_replay(..., wide=True)`` does that too, on every case above
 and on rows of 65,535-70,000 matches with f ascending, where it must give
 every match the (lis, prev) of a windowed direct DP (``_direct_sorted``).
+On a colinear row of 2,200,000 matches, whose q_lo pass 65,535 (K1 keeps
+them as 32-bit words in global scratch), q_lo and the replay of its last
+chunks hold to the row's closed form.
 
 Inputs: test_torch_chain._matches; repeat copies 4,999 and 5,000 apart;
 unsorted f; runs of equal f; counts 0, 1, 31, 32, 33 and N in one batch; N
@@ -24,10 +30,12 @@ not a multiple of 32; an earliest-j tie across a chunk boundary; match
 rows of the JAX package's ``find_matches`` on simulated reads (N <= 512);
 for the wide state a colinear run of 70,000 (lis and the chosen j past
 65,535), an earliest-j tie across a chunk boundary at j > 65,535, and counts
-65,535, 65,536 and 65,537 in one batch.  Tolerance: exact.
+65,535, 65,536 and 65,537 in one batch; a colinear row of 2,200,000.
+Tolerance: exact.
 """
 
 import functools
+import os
 
 import jax
 import numpy as np
@@ -43,7 +51,8 @@ from bioinfo1_tpu.utils import simulate
 from bioinfo1_tpu_torch.kernels import build
 from bioinfo1_tpu_torch.ops import chain as tchain
 from test_torch_chain import FIELDS, _matches
-from torch_chain_rows import TIE_COL, TIE_J1, TIE_J2, WIDE_ROWS
+from torch_chain_rows import (TIE_COL, TIE_J1, TIE_J2, WIDE_COLINEAR_N,
+                              WIDE_ROWS, colinear_q_lo, colinear_rows)
 
 C = tchain.CHAIN_C
 GAP = 5000
@@ -55,8 +64,10 @@ def _bytes(path, N):
     """Shared bytes of a path by csrc/lis_chain.cu's layout."""
     n_pad = -(-N // C) * C
     head = 2 * (-(-(n_pad // C) // 8) * 8)
+    if path == "wide":          # q_lo in a global scratch row
+        return 0
     return head + {"shared": 14 * n_pad, "state": 6 * n_pad,
-                   "scratch": 8 * (n_pad // C), "wide": 0}[path]
+                   "scratch": 8 * (n_pad // C)}[path]
 
 
 @pytest.mark.parametrize("N,path", [
@@ -80,10 +91,12 @@ def test_chain_plan_boundaries(last, path):
 
 
 @pytest.mark.parametrize("N", [65536, 65537, 73728, 98304, 786432,
-                               2 ** 21])
+                               2 ** 21, 2 ** 21 + 1, 2359296, 2 ** 22,
+                               2 ** 26, 2 ** 27 - 1])
 def test_chain_plan_wide_path(N):
     """Past 65,535 matches (the 16-bit index of the narrow state) every
-    budget takes the wide path, up to its limit of 65,536 chunks."""
+    budget takes the wide path, with no dynamic shared memory, up to its
+    ceiling of 2^27 - 1."""
     assert tchain.chain_plan(N - 1).path == ("scratch" if N == 65536
                                              else "wide")
     plan = tchain.chain_plan(N)
@@ -93,9 +106,21 @@ def test_chain_plan_wide_path(N):
 
 
 def test_chain_plan_rejects_budgets_outside_the_packed_range():
-    for N in (0, 2 ** 21 + 1):
+    for N in (0, tchain._MAX_N + 1):
         with pytest.raises(ValueError, match="outside"):
             tchain.chain_plan(N)
+
+
+def test_wide_ceiling_is_the_largest_lis_the_scan_key_holds():
+    """The wide path's serial scan reduces the 32-bit key (lis << 5) | (31
+    - lane), and lis <= N: the ceiling is the largest N whose key fits,
+    and K1's C entry states the same."""
+    assert tchain._MAX_N == 2 ** 27 - 1
+    assert (tchain._MAX_N << 5 | 31) < 2 ** 32 <= (tchain._MAX_N + 1) << 5
+    with open(os.path.join(os.path.dirname(tchain.__file__), os.pardir,
+                           "csrc", "lis_chain.cu")) as fh:
+        src = fh.read()
+    assert "constexpr int kWideMaxN = (1 << 27) - 1;" in src
 
 
 def _base_budget(cap):
@@ -116,6 +141,45 @@ def test_chain_plan_takes_every_long_bucket_budget_and_its_doubling(cap):
     base = _base_budget(cap)
     for N in (base, 2 * base):
         assert tchain.chain_plan(N).path == "wide", N
+
+
+# Both mappers' length buckets from 196,608 to 16,777,216 (reads of 131 kb
+# to 16.8 Mb).
+LONG_CAPS = [c for p in range(18, 25) for c in (3 << (p - 2), 1 << p)]
+
+
+def _ladder(cap):
+    """The match budgets the mapper's ladder gives a read of bucket
+    ``cap`` up to K1's ceiling: the base budget and its doublings (an
+    overflow retry doubles it, or jumps to a power-of-two multiple that
+    covers the need)."""
+    base = _base_budget(cap)
+    return [base << d for d in range(64) if base << d <= tchain._MAX_N]
+
+
+def test_chain_plan_takes_the_ladder_of_every_bucket_to_16_mb():
+    """Every bucket from 196,608 to 16,777,216: both mappers put the reads
+    between the bucket below and it there, and chain_plan takes its base
+    budget and every doubling up to the ceiling on the wide path, and
+    refuses the next.
+    That is four doublings of the largest bucket's base budget (6,291,456
+    -> 100,663,296)."""
+    from bioinfo1_tpu_torch.pipeline import mapper as tmapper
+    floor = tmapper.MapperConfig().k + tmapper.MapperConfig().w - 1
+    assert LONG_CAPS[0] == 196608 and LONG_CAPS[-1] == 16777216
+    assert len(LONG_CAPS) == 14
+    for below, cap in zip([131072] + LONG_CAPS, LONG_CAPS):
+        for ln in (below + 1, cap):
+            assert {m._bucket_cap(ln, floor)
+                    for m in (jmapper, tmapper)} == {cap}, ln
+        taken = _ladder(cap)
+        assert len(taken) >= 5, cap
+        for N in taken:
+            assert tchain.chain_plan(N).path == "wide", (cap, N)
+        with pytest.raises(ValueError, match="outside"):
+            tchain.chain_plan(2 * taken[-1])
+    assert _ladder(16777216)[4] == 100663296 <= tchain._MAX_N
+    assert _base_budget(6291456) == 2359296 > 2 ** 21
 
 
 def test_doubled_budget_of_the_98304_bucket_is_refused_by_both_packages():
@@ -191,16 +255,20 @@ def _direct_sorted(f, r, n):
 STATE = {False: (16, 0xFFFF), True: (32, 0xFFFFFFFF)}
 
 
-def _replay(f, r, n, wide=False):
+def _replay(f, r, n, wide=False, chunks=None, packed=None):
     """K1's two-level DP: chunks of C, the cross phase over chunks [q_lo,
     k) with the full pair test, then the in-chunk scan, on packed states
     (lis << 16) | (0xFFFF - j), or with ``wide`` (lis << 32) | (0xFFFFFFFF
     - j), whose scan reduces the key (lis << 5) | (31 - lane) of the
-    earlier columns and unpacks the best one's state from it."""
+    earlier columns (a 32-bit word) and unpacks the best one's state from
+    it.  ``chunks`` (default all) replays those alone, on the states in
+    ``packed`` (default none yet) before them."""
     shift, mask = STATE[wide]
-    packed = np.zeros(n, np.int64)
+    packed = np.zeros(n, np.int64) if packed is None else packed.copy()
     prev = np.full(n, -1, np.int64)
-    for k, q_lo in enumerate(tchain.chunk_q_lo(f, n)):
+    q_los = tchain.chunk_q_lo(f, n)
+    for k in range(len(q_los)) if chunks is None else chunks:
+        q_lo = q_los[k]
         cols = np.arange(k * C, min(n, k * C + C))
         js = np.arange(q_lo * C, k * C)
         ok = _qualifies(f, r, js[:, None], cols[None, :])
@@ -219,6 +287,7 @@ def _replay(f, r, n, wide=False):
             best = max(cand, int(ext[t]))
             lis = (best >> shift) + 1
             key[t] = lis << 5 | (C - 1 - t)
+            assert not wide or key[t] < 2 ** 32
             packed[i] = lis << shift | (mask - i)
             prev[i] = mask - (best & mask) if best else -1
     return packed >> shift, prev
@@ -362,6 +431,54 @@ def test_replay_equals_direct_dp_and_jax(case):
         assert int(lax.length.max()) > 20
 
 
+def _q_lo_direct(f, n):
+    """The q_lo rule searched from chunk 0 (as the narrow paths do)."""
+    x = np.asarray(f[:n], np.int64)
+    fmin = np.array([x[q:q + C].min() for q in range(0, n, C)], np.int64)
+    fmax = np.array([x[q:q + C].max() for q in range(0, n, C)], np.int64)
+    q_lo = np.arange(len(fmin))
+    for k in range(len(fmin)):
+        ok = np.flatnonzero((fmax[:k] > fmin[k] - GAP) & (fmin[:k] < fmax[k]))
+        if len(ok):
+            q_lo[k] = ok[0]
+    return q_lo
+
+
+def _rows_of(rows, case):
+    """(f, n) of every row of a CASES ("narrow") or WIDE_ROWS ("wide")
+    case."""
+    if rows == "narrow":
+        f, _, cnt = CASES[case]()
+        return [(f[b].astype(np.int64), int(cnt[b]))
+                for b in range(f.shape[0])]
+    return [(f, n) for f, _, n in WIDE_ROWS[case]()]
+
+
+@pytest.mark.parametrize("rows,case", [("narrow", c) for c in CASES]
+                         + [("wide", c) for c in WIDE_ROWS],
+                         ids=lambda x: x)
+def test_scan_start_leaves_q_lo_as_the_direct_rule_gives_it(rows, case):
+    """The wide path starts each chunk's q_lo scan at chunk_scan_start (a
+    search of the running max of fmax): q_lo equals the rule searched from
+    chunk 0, and the start is never past it.  On sorted rows the start
+    skips every chunk the scan from 0 would test in vain."""
+    skipped = 0
+    for f, n in _rows_of(rows, case):
+        want = _q_lo_direct(f, n)
+        got = tchain.chunk_q_lo(f, n)
+        np.testing.assert_array_equal(got, want, err_msg=case)
+        fmin, fmax = tchain._chunk_bounds(f, n)
+        start = tchain.chunk_scan_start(fmin, fmax)
+        assert np.all(start <= got), case
+        skipped += int(start.sum())
+        if n and np.all(f[1:n] >= f[:n - 1]):
+            # sorted f: the first chunk reaching the window qualifies
+            np.testing.assert_array_equal(start, got, err_msg=case)
+    if rows == "wide" or case in ("matches", "repeats", "equal_f",
+                                  "find_matches"):
+        assert skipped > 0
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_q_lo_never_drops_a_qualifying_pair(case):
     """Every predecessor j of i lies in i's chunk or in a chunk at or after
@@ -403,3 +520,27 @@ def test_wide_replay_equals_direct_dp_past_the_16_bit_index(case):
             assert prev[TIE_COL] == TIE_J1 and TIE_J1 // C < TIE_COL // C
             assert TIE_J2 // C == TIE_COL // C
             assert q_start == f[TIE_J1] and length == 70000 - TIE_COL + 1
+
+
+def test_wide_replay_past_the_16_bit_chunk_index():
+    """A colinear row of 2,200,000 matches (68,750 chunks; budgets past
+    2,097,152 take K1's wide path with q_lo as 32-bit words): q_lo equals
+    the row's closed form, max(k - 157, 0), past 65,535 from chunk 65,693
+    on; the replay of chunks there and at the row's end, on the closed
+    form's states before them, gives each match lis = j + 1 and prev = j -
+    1, and keys past 2^21 << 5 that fit 32 bits."""
+    ((f, r, n),) = colinear_rows(WIDE_COLINEAR_N)
+    assert tchain.chain_plan(n).path == "wide" and n > 2 ** 21
+    q_lo = tchain.chunk_q_lo(f, n)
+    np.testing.assert_array_equal(q_lo, colinear_q_lo(n))
+    assert q_lo.max() > 0xFFFF and q_lo[65693] == 65536
+    j = np.arange(n, dtype=np.int64)
+    closed = (j + 1) << 32 | (0xFFFFFFFF - j)    # the closed form's states
+    K = len(q_lo)
+    chunks = [65692, 65693, 65694, K - 2, K - 1]
+    lis, prev = _replay(f, r, n, wide=True, chunks=chunks, packed=closed)
+    for k in chunks:
+        cols = j[k * C:min(n, k * C + C)]
+        np.testing.assert_array_equal(lis[cols], cols + 1, err_msg=k)
+        np.testing.assert_array_equal(prev[cols], cols - 1, err_msg=k)
+    assert lis[n - 1] == n and (n << 5 | 31) < 2 ** 32

@@ -28,7 +28,8 @@ from bioinfo1_tpu_torch.ops import probe
 from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.pipeline import device_map as dm
 from bioinfo1_tpu_torch.utils import simulate
-from torch_chain_rows import TIE_J1, WIDE_ROWS, batch
+from torch_chain_rows import (TIE_J1, WIDE_COLINEAR_N, WIDE_ROWS, batch,
+                              colinear_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -50,14 +51,19 @@ def _same(got, want):
                                       err_msg=f)
 
 
-def _chain_rows(rng, R, N):
+def _chain_rows(rng, R, N, most=None):
+    """R rows of budget N, counts drawn up to N (at most ``most``: the plain
+    version loops over the count), row 0 empty, row 1 full."""
     f = np.zeros((R, N), np.int32)
     r = np.zeros((R, N), np.int32)
     cnt = rng.integers(0, N + 1, R).astype(np.int32)
     cnt[0], cnt[1] = 0, N
+    if most is not None:
+        cnt = np.minimum(cnt, most)
+    span = max(4 * min(N, most or N), 20000)
     for b in range(R):
         n = int(cnt[b])
-        fs = np.sort(rng.integers(1, max(4 * N, 20000), n)).astype(np.int32)
+        fs = np.sort(rng.integers(1, span, n)).astype(np.int32)
         rs = fs + rng.integers(0, 3, n).astype(np.int32) * (4999 + b % 2)
         f[b, :n], r[b, :n] = fs, np.maximum(rs, 1)
     return f, r, cnt
@@ -116,18 +122,22 @@ def _chain_once(f, r, cnt):
 
 # Small budgets, the last N of each ops/chain.chain_plan path and the first
 # of the next, the mapper's 50 kb budget (36,864), the largest narrow
-# budgets and the wide path's first and the 196,608 bucket's base budget.
+# budgets and the wide path's first and the 196,608 bucket's base budget;
+# past 2,097,152 (65,536 chunks: the old wide path's 16-bit chunk index)
+# rows of at most 20,000 matches.
 @pytest.mark.parametrize("N,path", [
     (1, "shared"), (31, "shared"), (32, "shared"), (33, "shared"),
     (1000, "shared"), (16000, "shared"), (16001, "state"),
     (36864, "state"), (37152, "state"), (37153, "scratch"),
     (40000, "scratch"), (65535, "scratch"), (65536, "wide"),
-    (73728, "wide")])
+    (73728, "wide"), (2097153, "wide"), (4194304, "wide")])
 def test_lis_chain_kernel_every_path(dev, N, path):
     assert ch.chain_plan(N).path == path
     R = 6 if N <= 1000 else 2
+    most = 20000 if N > 2 ** 21 else None
     f, r, cnt = (torch.from_numpy(x).to(dev)
-                 for x in _chain_rows(np.random.default_rng(N + 1), R, N))
+                 for x in _chain_rows(np.random.default_rng(N + 1), R, N,
+                                      most))
     _chain_once(f, r, cnt)
 
 
@@ -209,8 +219,26 @@ def test_lis_chain_wide_path_at_small_budgets(dev, monkeypatch, R, N):
         _chain_once(f, r, cnt)
 
 
+def test_lis_chain_wide_kernel_past_the_16_bit_chunk_index(dev):
+    """A colinear row of 2,200,000 matches (68,750 chunks, q_lo past
+    65,535): each match's unique best predecessor is the one before it, so
+    the chain is the whole row, from j = 0 to the last (the O(N^2) plain
+    version is out of reach here)."""
+    f, r, cnt = (torch.from_numpy(x).to(dev)
+                 for x in batch(colinear_rows(WIDE_COLINEAR_N)))
+    n = WIDE_COLINEAR_N
+    assert ch.chain_plan(f.shape[1]).path == "wide" and n > 2 ** 21
+    before = ch.lis_chain.path_launches["wide"]
+    got = ch.lis_chain(f, r, cnt)
+    torch.cuda.synchronize()
+    assert ch.lis_chain.path_launches["wide"] == before + 1
+    assert [getattr(got, k).tolist() for k in
+            ("length", "q_start", "q_end", "t_start", "t_end")] == \
+        [[n], [1], [n], [1], [n]]
+
+
 def test_lis_chain_refuses_budgets_past_the_wide_limit(dev):
-    f = torch.zeros((1, 2 ** 21 + 1), dtype=torch.int32, device=dev)
+    f = torch.zeros((1, ch._MAX_N + 1), dtype=torch.int32, device=dev)
     before = ch.lis_chain.launches
     with pytest.raises(ValueError, match="outside"):
         ch.lis_chain(f, f, torch.ones(1, dtype=torch.int32, device=dev))

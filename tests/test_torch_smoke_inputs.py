@@ -147,6 +147,18 @@ def test_chain_work_counts_window_pairs(smoke):
     assert (got["longest_row"], got["bytes"]) == (200, 8 * 350 + 24 * 3)
 
 
+def test_wide_trial_finds_the_scan_start_in_k1(smoke):
+    """--wide-trial times K1's prologue without the wide path's q_lo scan
+    start by replacing one line of csrc/lis_chain.cu: that line is there
+    once, and the counters it reads are the measurement build's nine."""
+    with open(os.path.join(REPO, "bioinfo1_tpu_torch", "csrc",
+                           "lis_chain.cu")) as fh:
+        src = fh.read()
+    assert src.count(smoke.SCAN_START) == 1
+    assert "g_chain_profile[9]" in src
+    assert len(smoke.CHAIN_PROFILE_COUNTERS) == 9
+
+
 def test_device_time_merges_overlapping_intervals(smoke):
     """Busy time is the union of the kernels' intervals; a record_function
     scope, on the host or mirrored on the device as an annotation spanning

@@ -1,4 +1,5 @@
-"""Match rows past K1's 16-bit index (budgets > 65,535: its wide path).
+"""Match rows past K1's 16-bit index (budgets > 65,535: its wide path),
+and a colinear row past its old 16-bit chunk index (WIDE_COLINEAR_N).
 
 Shared by the CPU replay (``test_torch_chain_plan.py``) and the card's
 tests (``test_torch_kernels_cuda.py``); no JAX here.  Each builder returns
@@ -12,6 +13,9 @@ import numpy as np
 # before the column's (K1's cross phase), J2 in the column's own (its serial
 # scan); all three past 65,535.
 TIE_COL, TIE_J1, TIE_J2 = 65700, 65690, 65697
+# A colinear row past 2,097,152 matches (65,536 chunks of 32): its chunks'
+# q_lo pass 65,535, the old wide path's 16-bit chunk index.
+WIDE_COLINEAR_N = 2_200_000
 
 
 def colinear_rows(n: int = 70000) -> list:
@@ -19,6 +23,13 @@ def colinear_rows(n: int = 70000) -> list:
     each match's predecessor is the one before it."""
     f = np.arange(1, n + 1, dtype=np.int64)
     return [(f, f.copy(), n)]
+
+
+def colinear_q_lo(n: int) -> np.ndarray:
+    """K1's q_lo on colinear_rows(n), in closed form: chunk q (f from 32q +
+    1 to 32q + 32) qualifies for chunk k iff 32q + 32 > 32k + 1 - 5000,
+    i.e. q >= k - 157."""
+    return np.maximum(np.arange(-(-n // 32)) - 157, 0)
 
 
 def tie_rows() -> list:
