@@ -15,8 +15,9 @@
 // the band is _NEG.  Then, exactly in the Pallas order: the local clamp,
 // row 0 (j*init), column 0 (i*init), and _NEG for i < 0 or j < 0.
 //
-// A lane never moves, so its neighbours are fixed.  Three kernels share
-// the file; ops/band.band_plan picks one from W alone:
+// A lane never moves, so its neighbours are fixed.  Five kernels share
+// the file; ops/band.band_plan picks one from W alone (and, past the
+// card's w_strip, from whether parents are asked for):
 //
 // Register paths, W <= kRegMaxW (band_reg_kernel).  Thread t of a read's
 // group owns LPT consecutive lanes [t*LPT, (t+1)*LPT) and keeps the newest
@@ -112,8 +113,24 @@
 // (a device-memory round trip) an epoch; the halo adds 2 * kStripHalo
 // lanes a strip.
 //
-// Scratch path, W > the card's w_strip (band_scratch_kernel; any W when
-// called directly): one CTA per read, the
+// Epochs path, K2 with W > the card's w_strip (band_epoch_kernel; any W
+// that is a multiple of 128 when called directly): the strip path's
+// strips and body without co-residency.  A read's two newest diagonals
+// live in global memory in two slots, one for each epoch parity, with the
+// owned lanes' goal trackers.  One launch per epoch of 2 * kEpochHalo
+// diagonals covers every strip of every read: a CTA loads its window from
+// slot k & 1 (its halo from its neighbours' owned lanes), its lanes' bytes
+// on the epoch's first diagonal by index, runs the epoch alone and stores
+// its owned lanes into slot (k + 1) & 1; the C entry point issues the
+// launches one after another on the caller's stream, so stream order is
+// the only synchronisation, and a small merge kernel takes the strips'
+// goals after the last.  What bounds it: the strip body's instructions
+// and block sync a diagonal, plus a launch, a round trip of the window's
+// two diagonals (and the trackers) through device memory and the halo's
+// 2 * kEpochHalo lanes a strip every epoch.
+//
+// Scratch path, K4 with W > the card's w_strip (band_scratch_kernel; any W
+// when called directly): one CTA per read, the
 // three diagonals in shared memory (12*W bytes, plus K4's W accumulator
 // bytes) while that fits, else in a per-read global scratch; each lane
 // reads its bytes by index and evaluates every border condition; one
@@ -953,6 +970,302 @@ band_strip_kernel(BandArgs a, StripArgs x) {
   }
 }
 
+// ---- epochs path ----------------------------------------------------------
+
+constexpr int kEpochHalo = 64;  // H: halo lanes on each side of a strip
+#ifdef BIOINFO1_BAND_EPOCH_TRIAL  // chip_smoke.py --epoch-trial: the other H
+constexpr int kEpochTrialHalo = 32;
+#endif
+
+struct EpochArgs {
+  int* state;  // (B, epoch_state_ints(W, strips)) int32
+  int width;   // owned lanes of a strip, a multiple of 128
+  int strips;  // ceil(W / width)
+  int d0;      // the first diagonal of this launch's epoch (even)
+};
+
+// A read's state between two launches, in ints: two slots (slot k & 1
+// holds diagonals d0 - 2 and d0 - 1 of every band lane entering epoch k:
+// ev at 2W * slot, od at 2W * slot + W), the owned lanes' trackers (local:
+// best at 4W + l, best_d at 5W + l; semiGlobal: cc, ci, rc, rj of the
+// thread owning lane l at 4W + l / 2), and each strip's goal triples (8
+// ints a strip at 6W) for the merge.
+__host__ __device__ inline size_t epoch_state_ints(int W, int strips) {
+  return 6 * static_cast<size_t>(W) + 8 * static_cast<size_t>(strips);
+}
+
+// Epoch k > 0 of a thread's lanes from slot k & 1: its two newest
+// diagonals (_NEG past the band's ends: those lanes never reach a band
+// lane, the walls see to it), the lanes' bytes on diagonal d0 by index,
+// the trackers of an owned thread.
+template <int kMode, class L>
+__device__ __forceinline__ void epoch_load(L& s, const Place& p,
+                                           const BandArgs& a, const int* st,
+                                           int d0, int k) {
+  constexpr int LPT = kStripLpt, NW = LPT / 4;
+  s.match = a.match;
+  s.mismatch = a.mismatch;
+  s.gap = a.gap;
+  s.init = kMode == 0 ? a.gap : 0;
+  const size_t W = static_cast<size_t>(p.W);
+  if (p.base >= 0 && p.base < p.W) {
+    const int4* ev = reinterpret_cast<const int4*>(st + 2 * W * (k & 1) +
+                                                   p.base);
+    const int4* od = reinterpret_cast<const int4*>(st + 2 * W * (k & 1) + W +
+                                                   p.base);
+    const int4 a0 = __ldcg(ev), a1 = __ldcg(ev + 1);
+    const int4 a2 = __ldcg(od), a3 = __ldcg(od + 1);
+    s.ev[0] = a0.x, s.ev[1] = a0.y, s.ev[2] = a0.z, s.ev[3] = a0.w;
+    s.ev[4] = a1.x, s.ev[5] = a1.y, s.ev[6] = a1.z, s.ev[7] = a1.w;
+    s.od[0] = a2.x, s.od[1] = a2.y, s.od[2] = a2.z, s.od[3] = a2.w;
+    s.od[4] = a3.x, s.od[5] = a3.y, s.od[6] = a3.z, s.od[7] = a3.w;
+  } else {
+#pragma unroll
+    for (int x = 0; x < LPT; ++x) s.ev[x] = s.od[x] = kNeg;
+  }
+  // Lane l holds row i = (d0 + W) / 2 - l and column d0 - i on d0.
+  const int i0 = (d0 + p.W) >> 1;
+#pragma unroll
+  for (int x = 0; x < NW; ++x) {
+    s.qw[x] = s.tw[x] = s.pw[x] = 0;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int i = i0 - (p.base + 4 * x + y);
+      s.qw[x] |= p.rd.q_at(i) << (8 * y);
+      s.tw[x] |= p.rd.t_at(d0 - i) << (8 * y);
+    }
+  }
+  s.cc = s.ci = s.rc = s.rj = 0;
+#pragma unroll
+  for (int x = 0; x < LPT; ++x) {
+    s.best[x] = kNeg;
+    s.best_d[x] = 0;
+  }
+  if (!p.owned) return;
+  if constexpr (kMode == 1) {
+    const int4* b = reinterpret_cast<const int4*>(st + 4 * W + p.base);
+    const int4* bd = reinterpret_cast<const int4*>(st + 5 * W + p.base);
+    const int4 a0 = __ldcg(b), a1 = __ldcg(b + 1);
+    const int4 a2 = __ldcg(bd), a3 = __ldcg(bd + 1);
+    s.best[0] = a0.x, s.best[1] = a0.y, s.best[2] = a0.z, s.best[3] = a0.w;
+    s.best[4] = a1.x, s.best[5] = a1.y, s.best[6] = a1.z, s.best[7] = a1.w;
+    s.best_d[0] = a2.x, s.best_d[1] = a2.y, s.best_d[2] = a2.z;
+    s.best_d[3] = a2.w, s.best_d[4] = a3.x, s.best_d[5] = a3.y;
+    s.best_d[6] = a3.z, s.best_d[7] = a3.w;
+  } else if constexpr (kMode == 2) {
+    const int4 g = __ldcg(reinterpret_cast<const int4*>(st + 4 * W +
+                                                        p.base / 2));
+    s.cc = g.x, s.ci = g.y, s.rc = g.z, s.rj = g.w;
+  }
+}
+
+// The end of epoch k (not a read's last): an owned thread stores its two
+// newest diagonals into slot (k + 1) & 1 and its trackers.  Its
+// neighbours read slot k & 1 in this launch, never the one written here.
+template <int kMode, class L>
+__device__ __forceinline__ void epoch_store(const L& s, const Place& p,
+                                            int* st, int k) {
+  if (!p.owned) return;
+  const size_t W = static_cast<size_t>(p.W);
+  int4* ev = reinterpret_cast<int4*>(st + 2 * W * ((k + 1) & 1) + p.base);
+  int4* od = reinterpret_cast<int4*>(st + 2 * W * ((k + 1) & 1) + W +
+                                     p.base);
+  ev[0] = make_int4(s.ev[0], s.ev[1], s.ev[2], s.ev[3]);
+  ev[1] = make_int4(s.ev[4], s.ev[5], s.ev[6], s.ev[7]);
+  od[0] = make_int4(s.od[0], s.od[1], s.od[2], s.od[3]);
+  od[1] = make_int4(s.od[4], s.od[5], s.od[6], s.od[7]);
+  if constexpr (kMode == 1) {
+    int4* b = reinterpret_cast<int4*>(st + 4 * W + p.base);
+    int4* bd = reinterpret_cast<int4*>(st + 5 * W + p.base);
+    b[0] = make_int4(s.best[0], s.best[1], s.best[2], s.best[3]);
+    b[1] = make_int4(s.best[4], s.best[5], s.best[6], s.best[7]);
+    bd[0] = make_int4(s.best_d[0], s.best_d[1], s.best_d[2], s.best_d[3]);
+    bd[1] = make_int4(s.best_d[4], s.best_d[5], s.best_d[6], s.best_d[7]);
+  } else if constexpr (kMode == 2) {
+    *reinterpret_cast<int4*>(st + 4 * W + p.base / 2) =
+        make_int4(s.cc, s.ci, s.rc, s.rj);
+  }
+}
+
+// One epoch of K2's "epochs" path: diagonals [d0, d0 + 2H) of strip
+// blockIdx.x % strips of read blockIdx.x / strips, on a CTA of width / LPT
+// + 2H / LPT threads running the strip path's body over the window
+// [s0 - H, s0 + width + H).  It loads the window from slot k & 1 of its
+// read's state (its own lanes and its neighbours'), runs E = 2H diagonals
+// alone (a wrong value at the window's edge moves one lane inward per pair
+// of diagonals, so the owned lanes stay exact) and stores its owned lanes
+// into slot (k + 1) & 1.  No CTA waits on another: the launches of the
+// epochs follow each other on one stream, and that order is the only
+// synchronisation.  A read's last epoch (the one holding d_stop) writes
+// the global goal's value, or each strip's goal triples for the merge.
+template <bool kDashFree, int kMode, int H>
+__global__ void __launch_bounds__(kStripMaxWidth / kStripLpt + 2 * H /
+                                                                   kStripLpt,
+                                  1)
+band_epoch_kernel(BandArgs a, EpochArgs x) {
+  constexpr int LPT = kStripLpt, E = 2 * H;
+  static_assert(H % LPT == 0 && 128 % E == 0,
+                "E divides every W: W + 2 starts an epoch");
+  __shared__ Edges e;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int T = static_cast<int>(blockDim.x);
+  const int lane = tid & 31;
+  const int strip = static_cast<int>(blockIdx.x) % x.strips;
+  Place p;
+  p.b = static_cast<int>(blockIdx.x) / x.strips;
+  p.W = a.W;
+  p.B = a.B;
+  set_read(p, a);
+  const int d0 = x.d0;
+  if (d0 > p.d_stop) return;  // the read is done (uniform over the CTA)
+  p.half = p.W >> 1;
+  p.warp = tid >> 5;
+  p.nwarps = (T + 31) >> 5;
+  p.rank = 0;
+  p.nranks = 1;
+  const int cnt = min(32, T - 32 * p.warp);  // threads of this warp
+  p.mask = cnt == 32 ? 0xffffffffu : (1u << cnt) - 1u;
+  p.first = tid == 0;
+  p.last = tid == T - 1;
+  p.wfirst = lane == 0;
+  p.wlast = lane == cnt - 1;
+  const int s0 = strip * x.width;
+  const int s1 = min(s0 + x.width, p.W);
+  const int w0 = s0 - H;  // the window's first lane
+  p.base = w0 + tid * LPT;
+  p.q_w = p.W - 2 * w0;
+  p.t_off = 1 - p.half + w0 + T * LPT - 1;
+  p.lo_wall = p.base == 0;
+  p.hi_wall = p.base + LPT == p.W;
+  p.owned = p.base >= s0 && p.base < s1;
+  int* st = x.state + static_cast<size_t>(p.b) *
+                          epoch_state_ints(p.W, x.strips);
+  const int k = (d0 - 2) / E;
+
+  Lanes<false, kDashFree, kMode, LPT, true, false, true> s;
+  if (k == 0) {
+    s.init_lanes(p, a);
+  } else {
+    epoch_load<kMode>(s, p, a, st, d0, k);
+  }
+  if (p.wlast) e.od[p.warp + 1] = s.od[LPT - 1];
+  __syncthreads();
+
+  // d_stop is the read's, so every CTA of the read runs as many epochs.
+  const int d_end = min(d0 + E, p.d_stop + 1);
+  int d = d0;
+  if (d0 < p.W + 2) {
+#pragma unroll 1
+    for (; d + 1 < d_end; d += 2) s.template pair<true>(p, e, nullptr, d);
+  } else {
+#pragma unroll 1
+    for (; d + 1 < d_end; d += 2) s.template pair<false>(p, e, nullptr, d);
+  }
+  if (d < d_end) s.template even<true>(p, e, d);  // d == d_stop, even
+  if (d_end <= p.d_stop) {
+    epoch_store<kMode>(s, p, st, k);
+    return;
+  }
+
+  // The read's last epoch.
+  const int W = p.W;
+  if constexpr (kMode == 0) {
+    // The goal cell's value; band_epoch_merge_kernel writes the rest.
+    const int dg = p.ql + p.tl;
+    const int xl = p.tl - p.ql + W - (dg & 1);
+    const bool on = dg >= 2 && dg == p.d_stop && xl >= 0 && (xl >> 1) < W;
+    const int kg = (xl >> 1) - p.base;
+    if (on && p.owned && kg >= 0 && kg < LPT)
+      a.out[p.b] = (dg & 1) ? pick(s.od, kg) : pick(s.ev, kg);
+  } else {
+    int g[2][3];
+    if constexpr (kMode == 1) {
+      int c = kNeg, gi = 0, gj = 0;
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const int i = ((s.best_d[j] + W) >> 1) - (p.base + j);
+        const int jj = s.best_d[j] - i;
+        if (goal_better(s.best[j], i, jj, c, gi, gj)) {
+          c = s.best[j];
+          gi = i;
+          gj = jj;
+        }
+      }
+      group_best<true>(c, gi, gj, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      g[0][0] = c, g[0][1] = gi, g[0][2] = gj;
+      g[1][0] = g[1][1] = g[1][2] = 0;
+    } else {
+      int cc = s.cc, ci = s.ci, z0 = 0;
+      group_best<true>(cc, ci, z0, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      int rc = s.rc, rj = s.rj, z1 = 0;
+      group_best<true>(rc, rj, z1, p.mask, lane, cnt, p.warp, p.nwarps,
+                       e.goal);
+      g[0][0] = cc, g[0][1] = ci, g[0][2] = z0;
+      g[1][0] = rc, g[1][1] = rj, g[1][2] = z1;
+    }
+    if (tid == 0) {
+      int* mine = st + 6 * static_cast<size_t>(W) + 8 * strip;
+#pragma unroll
+      for (int r = 0; r < 6; ++r) mine[r] = g[r / 3][r % 3];
+    }
+  }
+}
+
+// After the last epoch, one thread a read: global mode writes the goal
+// cell (its value when the goal is off the sweep or the band, 0); local
+// and semiGlobal merge the strips' goal triples under the cluster path's
+// total order.  A read with d_stop < 2 ran no epoch: its trackers are
+// where they started.
+template <int kMode>
+__global__ void band_epoch_merge_kernel(BandArgs a, EpochArgs x) {
+  const int b = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (b >= a.B) return;
+  Place p;
+  p.b = b;
+  set_read(p, a);
+  const int W = a.W, B = a.B;
+  int* out = a.out;
+  if constexpr (kMode == 0) {
+    const int dg = p.ql + p.tl;
+    const int xl = p.tl - p.ql + W - (dg & 1);
+    const bool on = dg >= 2 && dg == p.d_stop && xl >= 0 && (xl >> 1) < W;
+    if (!on) out[b] = 0;
+    out[B + b] = p.ql;
+    out[2 * B + b] = p.tl;
+  } else {
+    int g[2][3] = {{kMode == 1 ? kNeg : 0, 0, 0}, {0, 0, 0}};
+    if (p.d_stop >= 2) {
+      const int* rec = x.state + static_cast<size_t>(b) *
+                                     epoch_state_ints(W, x.strips) +
+                       6 * static_cast<size_t>(W);
+      for (int r = 0; r < x.strips; ++r) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int* o = rec + 8 * r + 3 * k;
+          if (goal_better(o[0], o[1], o[2], g[k][0], g[k][1], g[k][2])) {
+            g[k][0] = o[0];
+            g[k][1] = o[1];
+            g[k][2] = o[2];
+          }
+        }
+      }
+    }
+    if constexpr (kMode == 1) {
+      const bool hit = g[0][0] > kNeg;
+      out[b] = hit ? g[0][0] : 0;
+      out[B + b] = hit ? g[0][1] : 0;
+      out[2 * B + b] = hit ? g[0][2] : 0;
+    } else {
+      const bool row_wins = g[1][0] > g[0][0];
+      out[b] = row_wins ? g[1][0] : g[0][0];
+      out[B + b] = row_wins ? p.ql : g[0][1];
+      out[2 * B + b] = row_wins ? g[1][1] : p.tl;
+    }
+  }
+}
+
 // ---- scratch path ---------------------------------------------------------
 
 // Per-read state in ints: three diagonals, plus W parent-accumulator bytes
@@ -1141,7 +1454,8 @@ enum BandPath {
   kPathWarps = 1,
   kPathScratch = 2,
   kPathCluster = 3,
-  kPathStrip = 4
+  kPathStrip = 4,
+  kPathEpochs = 5
 };
 
 using RegKernel = void (*)(BandArgs);
@@ -1280,10 +1594,70 @@ int launch_strips(const BandArgs& a, int width, int reads_per_launch,
   return static_cast<int>(cudaGetLastError());
 }
 
+using EpochKernel = void (*)(BandArgs, EpochArgs);
+
+template <bool kDashFree, int H>
+EpochKernel epoch_kernel(int mode) {
+  if (mode == 0) return band_epoch_kernel<kDashFree, 0, H>;
+  if (mode == 1) return band_epoch_kernel<kDashFree, 1, H>;
+  return band_epoch_kernel<kDashFree, 2, H>;
+}
+
+// The launches of the "epochs" path (K2 only): one launch of B * strips
+// CTAs of width / LPT + 2H / LPT threads per epoch of 2H diagonals, from
+// d = 2 to the last diagonal any read may reach (n_steps + 1; a read past
+// its own d_stop leaves at once), then the merge; all on `stream`, so each
+// epoch starts after the one before has ended.  No cooperative attribute:
+// the card runs a launch's CTAs in as many waves as it needs.
+template <bool kDashFree, int H>
+int launch_epochs_h(const BandArgs& a, EpochArgs x, cudaStream_t stream) {
+  const EpochKernel kern = epoch_kernel<kDashFree, H>(a.mode);
+  const dim3 grid(static_cast<unsigned>(a.B * x.strips), 1, 1);
+  const dim3 block(static_cast<unsigned>(x.width / kStripLpt +
+                                         2 * H / kStripLpt), 1, 1);
+  for (int d0 = 2; d0 <= a.n_steps + 1; d0 += 2 * H) {
+    x.d0 = d0;
+    kern<<<grid, block, 0, stream>>>(a, x);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 mgrid(static_cast<unsigned>((a.B + 127) / 128), 1, 1);
+  const dim3 mblock(128, 1, 1);
+  if (a.mode == 0) {
+    band_epoch_merge_kernel<0><<<mgrid, mblock, 0, stream>>>(a, x);
+  } else if (a.mode == 1) {
+    band_epoch_merge_kernel<1><<<mgrid, mblock, 0, stream>>>(a, x);
+  } else {
+    band_epoch_merge_kernel<2><<<mgrid, mblock, 0, stream>>>(a, x);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDashFree>
+int launch_epochs(const BandArgs& a, int width, int halo, int* state,
+                  cudaStream_t stream) {
+  if (width % 128 != 0 || width < 128 || width > kStripMaxWidth ||
+      a.W % 128 != 0 || state == nullptr || a.mode < 0 || a.mode > 2)
+    return cudaErrorInvalidValue;
+  EpochArgs x;
+  x.state = state;
+  x.width = width;
+  x.strips = (a.W + width - 1) / width;
+  x.d0 = 2;
+  if (halo == kEpochHalo) return launch_epochs_h<kDashFree, kEpochHalo>(
+      a, x, stream);
+#ifdef BIOINFO1_BAND_EPOCH_TRIAL
+  if (halo == kEpochTrialHalo)
+    return launch_epochs_h<kDashFree, kEpochTrialHalo>(a, x, stream);
+#endif
+  return cudaErrorInvalidValue;
+}
+
 // The plan (path, lanes per thread, reads per CTA - the cluster size on
-// the "cluster" path, the strip width on the "strip" path - and shared
-// bytes - reads per launch on the "strip" path) comes from
-// ops/band.band_plan; a plan no kernel was built for is refused.
+// the "cluster" path, the strip width on the "strip" and "epochs" paths -
+// and shared bytes - reads per launch on the "strip" path, the halo on the
+// "epochs" path) comes from ops/band.band_plan; a plan no kernel was built
+// for is refused.
 template <bool kParents>
 int launch_band(const void* q, int n, int n_pad, const void* t, int m,
                 int m_eff, const void* q_len, const void* t_len, int B, int W,
@@ -1342,6 +1716,13 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
                      : launch_strips<kParents, false>(a, reads_per_cta,
                                                       smem_bytes, rec, st);
   }
+  if (path == kPathEpochs && lpt == kStripLpt && !kParents) {  // K2 only
+    int* state = static_cast<int*>(scratch);
+    return dash_free ? launch_epochs<true>(a, reads_per_cta, smem_bytes,
+                                           state, st)
+                     : launch_epochs<false>(a, reads_per_cta, smem_bytes,
+                                            state, st);
+  }
 #ifdef BIOINFO1_BAND_LPT_TRIAL  // chip_smoke.py --lpt-trial: the other LPTs
   BIOINFO1_BAND_CASE(kPathWarp, 16, false)
   BIOINFO1_BAND_CASE(kPathWarps, 4, true)
@@ -1356,10 +1737,12 @@ int launch_band(const void* q, int n, int n_pad, const void* t, int m,
 // K2.  q: (B, n) uint8; t: (B, m) uint8; q_len/t_len: (B,) int32; out:
 // (3, B) int32 rows score, goal_i, goal_j.  W is a multiple of 128.  path,
 // lpt, reads_per_cta (the cluster size on the "cluster" path, the strip
-// width on the "strip" path) and smem_bytes (reads per launch on the
-// "strip" path) are ops/band.band_plan's; scratch is (B, 3 * W) int32 on
-// the scratch path when smem_bytes == 0, (B, strips * kStripRecInts) int32
-// of zeros on the "strip" path, else unused.
+// width on the "strip" and "epochs" paths) and smem_bytes (reads per
+// launch on the "strip" path, the halo on the "epochs" path) are
+// ops/band.band_plan's; scratch is (B, 3 * W) int32 on the scratch path
+// when smem_bytes == 0, (B, strips * kStripRecInts) int32 of zeros on the
+// "strip" path, (B, epoch_state_ints(W, strips)) int32 on the "epochs"
+// path, else unused.
 extern "C" int bioinfo1_band_score(const void* q, int n, int n_pad,
                                    const void* t, int m, int m_eff,
                                    const void* q_len, const void* t_len,

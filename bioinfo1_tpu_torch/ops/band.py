@@ -25,7 +25,9 @@ CPU tensors take ``align_scores_banded_plain``.  ``band_plan`` picks the
 kernel from W alone: lanes in registers up to ``W_REG`` in one CTA, up to
 ``W_CLUSTER`` across the CTAs of a thread-block cluster, up to the card's
 ``StripCard.w_strip`` (``W_STRIP`` on an H100 SXM) in strips on
-co-resident CTAs that swap halos once an epoch, the scratch kernel above.  ``certify`` is plain
+co-resident CTAs that swap halos once an epoch; above it, K2 in strips
+that keep their state in device memory between launches of one epoch each
+("epochs"), K4 on the scratch kernel.  ``certify`` is plain
 tensor code on either device, as in the JAX package.  The port rounds
 every band to 128 lanes on both devices (the JAX CPU path rounds its
 realign band to 16).
@@ -226,12 +228,19 @@ def align_scores_banded_plain(q_bytes: torch.Tensor, q_lens: torch.Tensor,
 # ("strip": the "warps" body over the strip and STRIP_HALO lanes on each
 # side; the CTAs swap their edges through a global buffer once every
 # STRIP_EPOCH diagonals, so all of a read's CTAs must be resident at once:
-# cooperative launches of reads_per_launch reads).  Wider bands take the
-# scratch kernel (one CTA per read, the diagonals in shared memory or, past
-# SMEM_LIMIT, a per-read global scratch).
+# cooperative launches of reads_per_launch reads).  Wider score-only bands
+# take the same strips without co-residency ("epochs": one launch per epoch
+# of 2 * EPOCH_HALO diagonals, every strip of every read, the two newest
+# diagonals and the trackers in a per-read device scratch between
+# launches, two slots by epoch parity; EPOCH_WIDTH lanes a strip).  Wider
+# bands with parents take the scratch kernel (one CTA per read, the
+# diagonals in shared memory or, past SMEM_LIMIT, a per-read global
+# scratch): K4 stores W / 4 bytes a diagonal and a read sweeps at least W
+# diagonals, so its parents past W_STRIP take at least W^2 / 4 > 73 GB.
 W_REG = 4096
 W_CLUSTER = 32768
-PATHS = ("warp", "warps", "scratch", "cluster", "strip")  # C's numbers
+PATHS = ("warp", "warps", "scratch", "cluster", "strip",
+         "epochs")  # C's numbers
 WARP_LPT = {128: 4, 256: 8}                # "warp" path: W -> LPT
 WARPS_LPT = 8
 MAX_READS_PER_CTA = 4
@@ -242,6 +251,13 @@ STRIP_HALO = 32                # H: halo lanes on each side of a strip
 STRIP_EPOCH = 2 * STRIP_HALO   # diagonals between two swaps
 STRIP_WIDTHS = (1024, 2048, 4096)
 STRIP_REC_INTS = 320           # csrc/band_score.cu kStripRecInts
+# The "epochs" path's strips: EPOCH_WIDTH owned lanes and EPOCH_HALO
+# (csrc/band_score.cu kEpochHalo) a side, from chip_smoke.py --epoch-trial
+# on an NVIDIA H100 80GB HBM3 at 700 W (W = 2^20, one ~1.2 Mb read): 2,121
+# ms at 2,048 lanes against 2,159 at 4,096 and 2,223 at 1,024 (halos of 64
+# lanes); halos of 32 took 2,277-2,376 ms, twice the launches.
+EPOCH_HALO = 64
+EPOCH_WIDTH = 2048
 # Static shared memory of the register kernel: four 33-entry edge arrays
 # and 32 goal triples, plus two goal triples of each CTA of a cluster.
 REG_SMEM_BYTES = 4 * 33 * 4 + 32 * 3 * 4 + 2 * MAX_CLUSTER * 3 * 4
@@ -314,8 +330,9 @@ class BandPlan:
     scratch_ints: int       # per-read int32 global scratch (0: none)
     cluster: int = 1        # CTAs per read on the "cluster" path (2-8)
     strip: int = 0          # "strip" path: owned lanes of a strip
-    strips: int = 0         # "strip" path: strips (CTAs) of a read
+    strips: int = 0         # "strip" / "epochs": strips (CTAs) of a read
     reads_per_launch: int = 0   # "strip" path: reads a cooperative launch
+    halo: int = 0           # "epochs" path: halo lanes on each side
 
     @property
     def threads_per_read(self) -> int:
@@ -344,10 +361,12 @@ def band_plan(W: int, B: int, want_parents: bool,
               card: StripCard | None = None) -> BandPlan:
     """Which kernel of csrc/band_score.cu serves a W-lane band, and its
     launch shape.  The path depends on W alone (and, past W_CLUSTER, on
-    the widest band ``card`` holds in strips; an H100 SXM when None); B
-    only sets how many one-warp reads share a CTA (more once the reads
-    outnumber what the card's SMs hold at one CTA each) and, on the strip
-    path, the strip width and the reads a launch (``strip_plan``)."""
+    the widest band ``card`` holds in strips, an H100 SXM when None, and
+    past it on ``want_parents``: K2 takes ``epoch_plan``, K4 the scratch
+    kernel); B only sets how many one-warp reads share a CTA (more once
+    the reads outnumber what the card's SMs hold at one CTA each) and, on
+    the strip path, the strip width and the reads a launch
+    (``strip_plan``)."""
     if W % LANES or W < LANES:
         raise ValueError(f"band_plan: W={W} is not a multiple of {LANES}")
     if W in WARP_LPT:
@@ -363,6 +382,8 @@ def band_plan(W: int, B: int, want_parents: bool,
                         c)
     if W <= (card or H100_SXM).w_strip:
         return strip_plan(W, B, card)
+    if not want_parents:
+        return epoch_plan(W)
     return scratch_plan(W, want_parents)
 
 
@@ -414,9 +435,31 @@ def strip_plan(W: int, B: int, card: StripCard | None = None,
                     reads_per_launch=_strip_launches(W, B, width, card)[1])
 
 
+def epoch_state_ints(W: int, strips: int) -> int:
+    """Ints of one read's state on the "epochs" path (csrc/band_score.cu
+    epoch_state_ints): two slots of two W-lane diagonals, 2W of trackers,
+    8 of goal triples a strip."""
+    return 6 * W + 8 * strips
+
+
+def epoch_plan(W: int, width: int = EPOCH_WIDTH,
+               halo: int = EPOCH_HALO) -> BandPlan:
+    """The "epochs" kernel's launch shape (K2 only; any W that is a
+    multiple of 128, ``band_plan`` gives it the score-only bands past the
+    card's ``w_strip``): strips of ``width`` owned lanes, one CTA of
+    (width + 2 * halo) / WARPS_LPT threads each, every strip of every read
+    in each epoch's launch.  The card need not hold them at once."""
+    if W % LANES or W < LANES or width % LANES or not 0 < width <= W_REG:
+        raise ValueError(f"epoch_plan: W={W}, width={width}")
+    strips = -(-W // width)
+    return BandPlan("epochs", WARPS_LPT, (width + 2 * halo) // WARPS_LPT, 1,
+                    REG_SMEM_BYTES, epoch_state_ints(W, strips),
+                    strip=width, strips=strips, halo=halo)
+
+
 def scratch_plan(W: int, want_parents: bool) -> BandPlan:
-    """The scratch kernel's launch shape (any W; ``band_plan`` gives it the
-    bands past the card's ``w_strip``)."""
+    """The scratch kernel's launch shape (any W; ``band_plan`` gives it
+    K4's bands past the card's ``w_strip``)."""
     # Per-read state: three int32 diagonals, plus K4's W accumulator bytes
     # (csrc/band_score.cu state_ints).
     state_ints = 3 * W + (W // 4 if want_parents else 0)
@@ -459,7 +502,8 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
             scratch = (torch.zeros if plan.path == "strip" else torch.empty)(
                 (B, plan.scratch_ints), dtype=torch.int32, device=dev)
         shape = {"cluster": (plan.cluster, plan.smem_bytes),
-                 "strip": (plan.strip, plan.reads_per_launch)}.get(
+                 "strip": (plan.strip, plan.reads_per_launch),
+                 "epochs": (plan.strip, plan.halo)}.get(
                      plan.path, (plan.reads_per_cta, plan.smem_bytes))
         args = [q_bytes.data_ptr(), n, n_pad, t_bytes.data_ptr(), m, m_eff,
                 q_lens.data_ptr(), t_lens.data_ptr(), B, W, n_steps, mode,

@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--profile-map | --lpt-trial | --walk-trial |
                            --chain-trial | --chain-profile |
                            --wide-trial [--parent DIR] | --full-trial |
-                           --strip-trial | --split-trial |
+                           --strip-trial | --epoch-trial |
+                           --megabase-trial [--parent DIR] |
+                           --split-trial |
                            --shard-trial [--genome-mb N] | --process-trial]
 
 Phases, in this order (each prints one JSON line; any mismatch fails the
@@ -49,7 +51,11 @@ run):
      65536) against the plain version, every parent byte of the rows K4
      writes (the kernel table's strip rows); the strip card the plan read
      (ops/band.strip_card) and the clusters the card holds at once
-     (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.
+     (cudaOccupancyMaxActiveClusters) for 2-8 CTAs of 512 threads.  K2's
+     "epochs" path (past the card's w_strip): 2 reads of ~8 kb at W =
+     540,800, each mode, against the plain version and the scratch kernel
+     (timed too); 8 reads of 100 kb at W = 65,536 forced onto it, held to
+     the strips and timed beside them in turns.
   2a. the pinned golden workload (tests/torch_golden.json; its files from
      bioinfo1_tpu_torch/utils/golden.py): bioinfo1_tpu_torch.map_all with
      no device argument (on the card) on its reads, then the CLI's eight
@@ -118,7 +124,8 @@ run):
      fresh and an adapted pass (realign at W = 65,536, then the fused step
      at the proved band: both on strips, which must launch in each pass),
      then both passes again with ops/band.band_plan sending every band past
-     W_CLUSTER to the scratch kernel: the PAFs of a pass must be
+     W_CLUSTER to the scratch kernel, then every score-only band past it to
+     K2's "epochs" path: each run's path alone launched, the PAFs of a pass
      byte-identical, faults 0; reads/s of each pass.  Then -c on 2 of the
      reads (K4 on strips, one read a chunk, and K5): every CIGAR spans its
      PAF line's extents and scores, recomputed on the host, the score-only
@@ -126,10 +133,11 @@ run):
      match budget, 73,728, takes K1's wide path) must map with no fault
      and give C11_OUTCOME's PAF.  Then the second golden recipe
      (tests/torch_golden_ultra.json): a ~150 kb and a ~250 kb read on a
-     600 kb genome, each alone, fresh and adapted passes: K1's wide path
-     and strips launched, faults 0, each PAF at its pinned sha256 (the JAX
-     CLI's on the CPU for the ~150 kb read, the port's CPU run's for the
-     ~250 kb one).
+     600 kb genome, each alone, fresh and adapted passes, as planned and
+     with K2's "epochs" path forced past W_CLUSTER: K1's wide path and the
+     route's path launched (strips or epochs, never both), faults 0, each
+     PAF at its pinned sha256 (the JAX CLI's on the CPU for the ~150 kb
+     read, the port's CPU run's for the ~250 kb one).
   2W. match budgets past 2,097,152 on the main path (ROADMAP C12,
      closed): a read of 4,200,000 bases (tests/torch_golden_4mb.json, the
      6,291,456 bucket, base match budget 2,359,296) alone, in-process, a
@@ -137,13 +145,22 @@ run):
      line at the sha256 pinned from the port's CLI on the CPU; the first
      golden recipe's reads with every match budget forced to 4,194,304:
      every K1 call wide, faults 0, the default run's pinned sha256.
+  2E. the default route on a megabase read (tests/torch_golden_mb.json):
+     one ONT-profile read of 1,199,829 bases from the bench's genome
+     alone, in-process, a fresh and an adapted pass: faults 0, one PAF line
+     at the pinned sha256, K2's "epochs" path launched and the scratch
+     kernel never, the fresh pass realigning at W = 2^20.  Its captured
+     realign pair gives the kernel table's megabase rows: at the card's
+     w_strip (540,672) on strips and on epochs, held equal, timed in turns;
+     at 2^20 on epochs, timed.
   2r. bench_torch.measure_repeat() at full size (a 4,641,652 bp
      repeat-structured genome, 1,026 + 1,026 reads, score-only and -c)
      with its reads/s and counters, then bench_torch.measure_sol(): K6's
      int32 rate, K2's fill rate, the int32 instructions per cell and the
      SM clock.
-  3. with BIOINFO1_PLATFORM=cpu in subprocesses: the first 96 reads
-     score-only and under -c, the first 32 under -c -a local, and 32
+  3. with BIOINFO1_PLATFORM=cpu in subprocesses, started after phase 2s
+     and running beside phases 2d-2r: the first 96
+     reads score-only and under -c, the first 32 under -c -a local, and 32
      reads of at most 4.5 kb under -g 1, -c -g 1 and (as FASTA)
      --bug-compat; their PAF lines must equal the GPU runs' byte for byte.
   4. only with --profile-map: the map stage alone on phase 2's inputs,
@@ -169,6 +186,14 @@ run):
   holds at the table's shape and at 1, 2, 4, 6, 8 and 12 reads of 100 kb
   (K4 at one), the bound of every row and the strip kernel's integer
   instructions per cell; outputs must be equal; the run ends there.
+  With --epoch-trial (the library built with BIOINFO1_BAND_EPOCH_TRIAL)
+  phase 1e times K2's "epochs" path at W = 2^20 on one ~1.2 Mb read at
+  every strip width and halos of 32 and 64 lanes (the trial behind
+  ops/band.EPOCH_WIDTH and EPOCH_HALO), and its launches alone on an empty
+  read.  With --megabase-trial [--parent DIR] phase 1m runs the megabase
+  read through this tree's CLI and, with DIR (an older tree's checkout),
+  through that tree's (the scratch kernel past w_strip: the pin of
+  tests/torch_golden_mb.json).  Both runs end there.
   With --walk-trial phase 1w times K5 alone (cold / L2-warm, the 50 kb
   parents, bench_torch's long-read rates) and the run ends there; it uses
   nothing that K5's wrapper did not have before its redesign, so a copy
@@ -222,7 +247,8 @@ The genome and reads come from bioinfo1_tpu_torch/utils/simulate.py.
 
 The second-to-last line is the kernel table as JSON: per kernel (K1-K6,
 K2's cluster path as its own entry, launched on phase 2L, K2's and K4's
-strip path and K1's wide path, launched on phase 2U) its
+strip path and K1's wide path, launched on phase 2U, K2's "epochs" path,
+launched on phase 2E) its
 launches on its path, its time, the plain version's, and its bound - the
 larger of its bytes over the card's memory rate and the int32 operations
 the function needs (NEEDED_OPS per unit, times this run's cells inside
@@ -242,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import signal
@@ -309,6 +336,19 @@ C12_OUTCOME = {"reads": [4200000], "faults": 0, "paf_lines": 1}
 # Phase 2W forces every match budget of the first golden recipe's reads to
 # this (MapperConfig.initial_match_budget): every K1 call past 2,097,152.
 FORCED_BUDGET = 1 << 22
+# Phase 2E's megabase read (tests/torch_golden_mb.json): one ONT-profile
+# read of a fragment of MB_FRAGMENT bases of the bench's genome, from a
+# generator seeded bench_torch.SEED + MB_SEED_OFFSET: 1,199,829 bases, in
+# the 1,572,864 length bucket; its fused pass's hint is past 524,288, so
+# its realign band is W_MB lanes, past an H100 SXM's w_strip: K2's
+# "epochs" path.
+GOLDEN_MB = os.path.join(REPO, "tests", "torch_golden_mb.json")
+MB_FRAGMENT = 1_220_000
+MB_SEED_OFFSET = 72
+W_MB = 1 << 20
+# The first multiple of 128 past an H100 SXM's w_strip (540,672): phase 1's
+# "epochs" rows, against the scratch kernel that K2 took there before.
+W_PAST_STRIP = 540800
 # K1's wide path on a colinear row of this many matches (phase 1): 68,750
 # chunks, their q_lo past 65,535; held to its closed form.
 WIDE_COLINEAR_N = 2_200_000
@@ -351,6 +391,7 @@ NEEDED_OPS = {
     "band_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_score_cluster": bench_torch.NEEDED_OPS_PER_CELL,
     "band_score_strip": bench_torch.NEEDED_OPS_PER_CELL,
+    "band_score_epochs": bench_torch.NEEDED_OPS_PER_CELL,
     "full_score": bench_torch.NEEDED_OPS_PER_CELL,
     "band_parents": bench_torch.NEEDED_OPS_PER_CELL + 5,
     "band_parents_strip": bench_torch.NEEDED_OPS_PER_CELL + 5,
@@ -374,6 +415,10 @@ KERNELS = {
     # (band_strip_kernel).
     "band_score_strip": ("bioinfo1_tpu_torch/csrc/band_score.cu",
                          "bioinfo1_tpu/ops/pallas_band.py:56"),
+    # K2's "epochs" path (W past the card's w_strip, 540,672 on an H100
+    # SXM): reads of ~1.1 Mb and more (band_epoch_kernel).
+    "band_score_epochs": ("bioinfo1_tpu_torch/csrc/band_score.cu",
+                          "bioinfo1_tpu/ops/pallas_band.py:56"),
     "full_score": ("bioinfo1_tpu_torch/csrc/full_score.cu",
                    "bioinfo1_tpu/ops/pallas_align.py:45"),
     "band_parents": ("bioinfo1_tpu_torch/csrc/band_score.cu",
@@ -480,6 +525,27 @@ def scratch_past_cluster(planned):
     return plan
 
 
+def epochs_past_cluster(planned):
+    """A band_plan with K2's "epochs" path for every score-only band past
+    W_CLUSTER (the forced route of phase 2U), else ``planned``: K4 keeps
+    its plan."""
+    from bioinfo1_tpu_torch.ops import band as bd
+
+    def plan(W: int, B: int, want_parents: bool, card=None):
+        if W > bd.W_CLUSTER and not want_parents:
+            return bd.epoch_plan(W)
+        return planned(W, B, want_parents, card)
+    return plan
+
+
+def epochs_at(width: int, halo: int):
+    """A band_plan factory: every call on the "epochs" path in strips of
+    ``width`` lanes with ``halo`` lanes a side (the epoch trial's)."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    return lambda planned: (lambda W, B, want_parents, card=None:
+                            bd.epoch_plan(W, width, halo))
+
+
 def strip_always(planned):
     """A band_plan with the strip kernel for every band (a trial's)."""
     from bioinfo1_tpu_torch.ops import band as bd
@@ -500,15 +566,30 @@ def strip_width(S: int):
     return make
 
 
-def against_scratch(row: dict, run, err_fn, got) -> None:
-    """Hold a strip-path row's output ``got`` to the scratch kernel on the
-    same inputs (``run()`` under scratch_past_cluster) and time that
-    kernel in the same call: the time the strip path replaces."""
+def against_scratch(row: dict, run, err_fn, got,
+                    time_the_check: bool = False) -> None:
+    """Hold a row's output ``got`` to the scratch kernel on the same inputs
+    (``run()`` under scratch_past_cluster) and time that kernel in the
+    same call: the time the row's path replaces.  With
+    ``time_the_check`` the checked call is the timed one (a scratch call
+    of seconds needs no second)."""
     with band_plan_as(scratch_past_cluster):
-        err = err_fn(got, run())
-        check(err == 0, f"{row['call']}: the strip path differs from the "
-                        f"scratch kernel (max abs err {err})")
-        row.update(scratch_ms=cuda_ms(run, 1), max_abs_err_vs_scratch=err)
+        if time_the_check:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = run()
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+        else:
+            want = run()
+        err = err_fn(got, want)
+        check(err == 0, f"{row['call']}: the {row.get('path')} path "
+                        f"differs from the scratch kernel (max abs err "
+                        f"{err})")
+        row.update(scratch_ms=ms if time_the_check else cuda_ms(run, 1),
+                   max_abs_err_vs_scratch=err)
 
 
 # ---- phase 1 inputs -------------------------------------------------------
@@ -809,6 +890,9 @@ def phase_kernels(dev) -> dict:
     rows["band_parents_strip"].insert(0, k4_100k)
     rows["strip_card"] = dataclasses.asdict(bd.strip_card(dev))
     torch.cuda.empty_cache()
+    # K2's "epochs" path past the card's w_strip: the kernel table's rows
+    # (phase 2E adds the megabase read's realign pair).
+    rows["band_score_epochs"] = band_rows_epochs(scoring, dev)
     # K1 on the match rows the 50 kb reads give it on the main path.
     f, r, cnt = chain_rows_50k(dev)[0]
     rows["lis_chain"].append(chain_row(
@@ -971,21 +1055,28 @@ def chain_profile_split(source: str = None, tag: str = "k1"):
 W_50K = 25088         # the 50 kb reads' band (7 CTAs of 448 threads)
 
 
-def pairs_50k(rng, dev, B: int = 11) -> list:
-    """The shape the 50 kb reads give K2 / K4 / K5: B = 11 reads of ~46 kb
-    against regions 1,500 bases longer, (B, n) = (11, 50000), m = 52000."""
-    n, m = 50000, 52000
+def region_pairs(rng, dev, B: int, n: int, m: int, lens: tuple,
+                 longer: int) -> list:
+    """B ONT-profile reads of fragments of rng.integers(*lens) bases
+    against their regions, ``longer`` bases past the fragment; (B, n) and
+    (B, m) byte rows."""
     qa = np.zeros((B, n), np.uint8)
     ta = np.zeros((B, m), np.uint8)
     ql = np.zeros(B, np.int32)
     tl = np.zeros(B, np.int32)
     for b in range(B):
-        ln = int(rng.integers(44000, 48000))
-        tgt = sim.random_genome(ln + 1500, rng)
+        ln = int(rng.integers(*lens))
+        tgt = sim.random_genome(ln + longer, rng)
         qry = sim.mutate_read(tgt[:ln], rng)[:n]
         qa[b, :len(qry)], ql[b] = qry, len(qry)
         ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
     return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+
+
+def pairs_50k(rng, dev, B: int = 11) -> list:
+    """The shape the 50 kb reads give K2 / K4 / K5: B = 11 reads of ~46 kb
+    against regions 1,500 bases longer, (B, n) = (11, 50000), m = 52000."""
+    return region_pairs(rng, dev, B, 50000, 52000, (44000, 48000), 1500)
 
 
 def band_rows_50k(pairs, scoring) -> list:
@@ -1074,6 +1165,84 @@ def band_rows_100k(pairs, scoring) -> list:
         row.update(band_work(q, ql, t, tl, W, parents))
         out.append(row)
         torch.cuda.empty_cache()
+    return out
+
+
+def with_bound(row: dict, name: str) -> dict:
+    """``row`` with its bound (bound) and time / bound."""
+    row["bound_ms"], row["bound_by"] = bound(row, NEEDED_OPS[name])
+    row["time_over_bound"] = row["ms"] / row["bound_ms"]
+    return row
+
+
+def paired_ms(runs: dict, reps: int = 1) -> dict:
+    """ms of each of two calls, timed in turns (a, b, b, a): each one's
+    two timings."""
+    (a, fa), (b, fb) = runs.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[name].append(cuda_ms(fn, reps))
+    return out
+
+
+def band_rows_epochs(scoring, dev) -> list:
+    """K2 on the "epochs" path (band_epoch_kernel): at W = W_PAST_STRIP, 2
+    reads of ~8 kb, each mode, against the plain version and
+    against the scratch kernel on the same inputs (against_scratch, timed
+    too); then the strip trial's 8 reads of 100 kb at W = 65,536 forced
+    onto it (epochs_past_cluster), held to the strip path as planned and
+    timed beside it in turns: what the epochs cost against co-resident
+    strips.  Each row with its bound and time / bound."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    card = bd.strip_card(dev)
+    out = []
+    # 2 reads of ~7.6-8 kb against regions 300 bases longer: short enough
+    # for the plain version and the scratch kernel at W_PAST_STRIP.
+    q, ql, t, tl = region_pairs(np.random.default_rng(8), dev, 2, 8000,
+                                8400, (7600, 8001), 300)
+    W, (B, n) = W_PAST_STRIP, q.shape
+    for mode in (0, 1, 2):
+        def run(mode=mode):
+            return bd.align_scores_banded(q, ql, t, tl, *scoring, band=W,
+                                          mode=mode, dash_free=True)
+        row, got = compare(
+            f"band epochs W={W} B={B} n={n} mode={mode} dash_free=True",
+            run, lambda mode=mode: bd.align_scores_banded_plain(
+                q, ql, t, tl, *scoring, band=W, mode=mode, dash_free=True),
+            reps=1, keep=True)
+        plan = bd.band_plan(W, B, False, card)
+        check(plan.path == "epochs", f"W={W}: the {plan.path} path")
+        row.update(dataclasses.asdict(plan))
+        row.update(band_work(q, ql, t, tl, W, False))
+        against_scratch(row, run, max_abs_err, got, time_the_check=True)
+        out.append(with_bound(row, "band_score_epochs"))
+        torch.cuda.empty_cache()
+    del q, ql, t, tl
+    q, ql, t, tl = pairs_100k(np.random.default_rng(6), dev)
+    W, (B, n) = W_100K, q.shape
+
+    def run():
+        return bd.align_scores_banded(q, ql, t, tl, *scoring, band=W, mode=0,
+                                      dash_free=True)
+
+    def epochs():
+        with band_plan_as(epochs_past_cluster):
+            return run()
+    want, got = run(), epochs()
+    err = max_abs_err(got, want)
+    check(err == 0, f"W={W}: the epochs path differs from the strips "
+                    f"(max abs err {err})")
+    del want, got
+    times = paired_ms({"epochs": epochs, "strip": run})
+    row = {"call": f"band epochs vs strips W={W} B={B} n={n} mode=0 "
+                   "dash_free=True", "ms": min(times["epochs"]),
+           "plain_ms": None, "max_abs_err": err, "against": "strip path",
+           "paired_ms": times, "strip_ms": min(times["strip"]),
+           **dataclasses.asdict(bd.epoch_plan(W)),
+           **band_work(q, ql, t, tl, W, False)}
+    out.append(with_bound(row, "band_score_epochs"))
+    del q, ql, t, tl
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1676,6 +1845,7 @@ def issued_per_unit(listing: str) -> dict:
             "band_score_cluster": band(False, 25088, 11),
             "band_parents_cluster": band(True, 25088, 11),
             "band_score_strip": band(False, W_100K, 2),
+            "band_score_epochs": band(False, W_PAST_STRIP, 2),
             "band_parents_strip": band(True, W_100K, 1),
             "band_parents": band(True),
             "full_score": full_issued(listing),
@@ -1801,6 +1971,7 @@ def launch_counters() -> dict:
             # K2 and K4 on the strip path together: a score-only run
             # launches K2 alone there, a -c run K4 alone (phase 2U).
             "band_score_strip": (_PathCount(band, "strip"), "launches"),
+            "band_score_epochs": (_PathCount(band, "epochs"), "launches"),
             "band_parents_strip": (_PathCount(band, "strip"), "launches"),
             "full_score": (al.align_scores, "launches"),
             "band_parents": (band, "parent_launches"),
@@ -2782,8 +2953,9 @@ def phase_ultralong(dev) -> dict:
     A fresh pass realigns them at W = 65,536 and the adapted pass runs the
     fused step at the band they proved: both past W_CLUSTER, so on strips
     as planned (launched in each pass), then again with the scratch kernel
-    past W_CLUSTER (scratch_past_cluster); the PAFs of a pass must be
-    byte-identical, no batch may raise.  Then -c on 2 of the reads (K4 on
+    past W_CLUSTER (scratch_past_cluster), then with K2's "epochs" path
+    there (epochs_past_cluster); each run's path alone takes the wide
+    bands, the PAFs of a pass must be byte-identical, no batch may raise.  Then -c on 2 of the reads (K4 on
     strips, B = 1 a chunk): every CIGAR spans its PAF line's extents and
     scores, on the host, what the score-only run gave the read."""
     from bioinfo1_tpu_torch.ops import band as bd
@@ -2793,7 +2965,8 @@ def phase_ultralong(dev) -> dict:
     mapper.device_index()
     runs, pafs, launches = [], {}, None
     for name, make in (("strip", lambda planned: planned),
-                       ("scratch", scratch_past_cluster)):
+                       ("scratch", scratch_past_cluster),
+                       ("epochs", epochs_past_cluster)):
         mapper._band_by_key.clear()
         mapper._budget_boost.clear()
         for pass_ in ("fresh", "adapted"):
@@ -2823,15 +2996,15 @@ def phase_ultralong(dev) -> dict:
                                       if k != "cert_hit_rate" and
                                       isinstance(after[k], (int, float))}})
             pafs[name, pass_] = lines
-            want = "strip" if name == "strip" else "scratch"
-            check(paths[want] >= 1 and paths["strip" if name == "scratch"
-                                              else "scratch"] == 0,
-                  f"100 kb {name} {pass_}: the {want} path did not take "
-                  f"the wide bands ({paths})")
+            others = {"strip", "scratch", "epochs"} - {name}
+            check(paths[name] >= 1 and not any(paths[x] for x in others),
+                  f"100 kb {name} {pass_}: the {name} path did not take "
+                  f"the wide bands alone ({paths})")
     for pass_ in ("fresh", "adapted"):
-        check(pafs["strip", pass_] == pafs["scratch", pass_],
-              f"100 kb reads, {pass_} pass: the PAF differs between the "
-              "strip path and the scratch kernel")
+        for other in ("scratch", "epochs"):
+            check(pafs["strip", pass_] == pafs[other, pass_],
+                  f"100 kb reads, {pass_} pass: the PAF differs between "
+                  f"the strip path and the {other} path")
     check(len(pafs["strip", "fresh"]) >= 0.9 * len(recs),
           f"100 kb reads: only {len(pafs['strip', 'fresh'])} of "
           f"{len(recs)} mapped")
@@ -2850,11 +3023,13 @@ def golden_ultra(dev) -> dict:
     """Reads past 131 kb (GOLDEN_ULTRA: a ~150 kb read in the 196,608
     length bucket, base match budget 73,728, and a ~250 kb read in the
     262,144 bucket, 98,304), each run mapped alone in-process, score-only,
-    a fresh and an adapted pass: no batch may raise, K1's wide path and
-    the strip path must launch in each pass, and each pass's PAF must have
-    the run's pinned sha256 (a CLI's on the CPU: the JAX package's, or the
-    port's plain version of every kernel where the JAX CLI does not
-    finish).  ``launches`` are the first run's fresh pass's."""
+    a fresh and an adapted pass, as planned (strips) and with K2's
+    "epochs" path forced past W_CLUSTER (epochs_past_cluster): no batch may
+    raise, K1's wide path and the route's path must launch in each pass
+    and the other not, and each pass's PAF must have the run's pinned
+    sha256 (a CLI's on the CPU: the JAX package's, or the port's plain
+    version of every kernel where the JAX CLI does not finish).
+    ``launches`` are the first run's fresh pass's (strips)."""
     from bioinfo1_tpu_torch.ops import band as bd
     from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
     from bioinfo1_tpu_torch.utils import golden
@@ -2864,17 +3039,19 @@ def golden_ultra(dev) -> dict:
                     device=dev)
     mapper.device_index()
     runs, launches = [], None
-    for run in pin["runs"]:
+    for run, route in itertools.product(pin["runs"], ("strip", "epochs")):
         reads = golden.run_records(recs, run)
         mapper._band_by_key.clear()
         mapper._budget_boost.clear()
         for pass_ in ("fresh", "adapted"):
-            name = f"{run['name']} {pass_}"
+            name = f"{run['name']} {route} {pass_}"
             before = mapper.counters.as_dict()
             counters = reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lines = mapper.map_records(reads)
+            with band_plan_as(epochs_past_cluster if route == "epochs"
+                              else lambda planned: planned):
+                lines = mapper.map_records(reads)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = {k: getattr(w, a) for k, (w, a) in counters.items()}
@@ -2883,7 +3060,7 @@ def golden_ultra(dev) -> dict:
             paths = dict(bd.align_scores_banded.path_launches)
             sha = golden.sha256("".join(line + "\n" for line in lines))
             runs.append({
-                "run": run["name"], "pass": pass_,
+                "run": run["name"], "route": route, "pass": pass_,
                 "read_lens": [len(s) for _, s in reads], "wall_s": wall,
                 "paf_lines": len(lines), "sha256": sha,
                 "band_path_launches": paths,
@@ -2893,9 +3070,12 @@ def golden_ultra(dev) -> dict:
                              and isinstance(after[k], (int, float))}})
             check(runs[-1]["counters"]["faults"] == 0,
                   f"{name}: a batch raised")
-            check(got["lis_chain_wide"] >= 1 and paths["strip"] >= 1,
-                  f"{name}: K1's wide path or the strip path never "
-                  f"launched ({got['lis_chain_wide']}, {paths})")
+            other = "epochs" if route == "strip" else "strip"
+            check(got["lis_chain_wide"] >= 1 and paths[route] >= 1
+                  and paths[other] == 0,
+                  f"{name}: K1's wide path or the {route} path never "
+                  f"launched, or the {other} path did "
+                  f"({got['lis_chain_wide']}, {paths})")
             check(sha == run["sha256"] and len(lines) == len(reads),
                   f"{name}: {len(lines)} PAF lines, sha256 {sha}, not the "
                   f"pinned {run['sha256']}")
@@ -2980,6 +3160,247 @@ def phase_c12(dev) -> dict:
     return {"phase": "2W", "runs": runs}
 
 
+def cli_outcome(root: str, ref: str, reads: str, timeout: int) -> dict:
+    """The CLI of the tree at ``root`` on one reference and reads file,
+    with --profile and fresh bands: its rc, PAF lines and their sha256,
+    the mapper's faults, its first ERROR lines and its wall."""
+    from bioinfo1_tpu_torch.utils import golden
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bioinfo1_tpu_torch.cli", "--profile", ref,
+         reads], cwd=root, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, BIOINFO1_BAND_CACHE="0"))
+    return {"root": root, "rc": proc.returncode,
+            "paf_lines": len(proc.stdout.splitlines()),
+            "sha256": golden.sha256(proc.stdout),
+            "faults": (parse_profile(proc.stderr)["mapper"]["faults"]
+                       if proc.returncode == 0 else None),
+            "errors": sorted({x for x in proc.stderr.splitlines()
+                              if x.startswith("ERROR")})[:4],
+            "wall_s": time.perf_counter() - t0}
+
+
+def megabase_records():
+    """(genome, [record]): the bench's genome and GOLDEN_MB's read, one
+    ONT-profile read of a fragment of MB_FRAGMENT bases."""
+    genome = bench_torch.make_data(bench_torch.FULL)[0]
+    recs = sim.simulate_reads(
+        genome, (MB_FRAGMENT,),
+        np.random.default_rng(bench_torch.SEED + MB_SEED_OFFSET))
+    return genome.tobytes().decode("latin1"), recs
+
+
+def megabase_rows(dev, call, scoring) -> list:
+    """K2 on the megabase read's realign pair (``call``: the arrays, band,
+    dash_free and mode that Mapper._banded_pass took): at the card's
+    w_strip (540,672 lanes on an H100 SXM) on the strip path as planned
+    and on the "epochs" path, held equal, timed in turns; at the realign's
+    own W_MB on the "epochs" path alone, timed, held to the realign pass's
+    outputs.  Never on the scratch kernel."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    qa, qla, ta, tla, W, dash_free, mode, res = call
+    q, ql, t, tl = (torch.from_numpy(x).to(dev) for x in (qa, qla, ta, tla))
+    card = bd.strip_card(dev)
+    rows = []
+
+    def run(W):
+        return bd.align_scores_banded(q, ql, t, tl, *scoring, band=W,
+                                      mode=mode, dash_free=dash_free)
+
+    def epochs(W):
+        with band_plan_as(epochs_past_cluster):
+            return run(W)
+    Ws = card.w_strip
+    check(bd.band_plan(Ws, 1, False, card).path == "strip",
+          f"W={Ws}: not the strip path")
+    want, got = run(Ws), epochs(Ws)
+    err = max_abs_err(got, want)
+    check(err == 0, f"megabase pair at W={Ws}: the epochs path differs "
+                    f"from the strips (max abs err {err})")
+    del want, got
+    times = paired_ms({"epochs": lambda: epochs(Ws),
+                       "strip": lambda: run(Ws)})
+    rows.append(with_bound({
+        "call": f"band epochs vs strips megabase realign pair W={Ws} B=1 "
+                f"n={q.shape[1]} mode={mode} dash_free={dash_free}",
+        "ms": min(times["epochs"]), "plain_ms": None, "max_abs_err": err,
+        "against": "strip path", "paired_ms": times,
+        "strip_ms": min(times["strip"]),
+        **dataclasses.asdict(bd.epoch_plan(Ws)),
+        **band_work(q, ql, t, tl, Ws, False)}, "band_score_epochs"))
+    torch.cuda.empty_cache()
+    plan = bd.band_plan(W, 1, False, card)
+    check(W == W_MB and plan.path == "epochs",
+          f"the megabase realign call: W={W} on the {plan.path} path")
+    got = run(W)
+    want = [torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+            for x in (res.score, res.goal_i, res.goal_j)]
+    err = max(max_abs_err(a, b) for a, b in zip(
+        (got.score, got.goal_i, got.goal_j), want))
+    check(err == 0, "the megabase realign pair: K2 differs from the "
+                    "realign pass's own call")
+    rows.append(with_bound({
+        "call": f"band epochs megabase realign pair W={W} B=1 "
+                f"n={q.shape[1]} mode={mode} dash_free={dash_free}",
+        "ms": cuda_ms(lambda: run(W), 1), "plain_ms": None,
+        "max_abs_err": err, "against": "the realign pass's call",
+        **dataclasses.asdict(plan), **band_work(q, ql, t, tl, W, False)},
+        "band_score_epochs"))
+    del q, ql, t, tl, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_megabase(dev, rows: dict) -> dict:
+    """Phase 2E: the default route on a megabase read.  GOLDEN_MB's read
+    (~1.2 Mb) alone, in-process, score-only, a fresh and an adapted pass:
+    faults 0, one PAF line at the pinned sha256, K2's "epochs" path
+    launched and the scratch kernel never; the fresh pass's realign call
+    must be at W_MB.  Its captured realign pair gives the kernel table's
+    megabase rows (megabase_rows), appended to ``rows``."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    from bioinfo1_tpu_torch.utils import golden
+    with open(GOLDEN_MB) as fh:
+        pin = json.load(fh)
+    genome, recs = megabase_records()
+    check(len(recs[0][1]) == pin["read_len"],
+          f"the megabase read has {len(recs[0][1])} bases, not "
+          f"{pin['read_len']}")
+    cfg = MapperConfig()
+    mapper = Mapper([("bench", genome)], cfg, device=dev)
+    mapper.device_index()
+    calls, real = [], mapper._banded_pass
+
+    def capture(qa, ql, ta, tl, W, dash_free, want_parents, strict):
+        res = real(qa, ql, ta, tl, W, dash_free, want_parents, strict)
+        calls.append((qa.copy(), ql.copy(), ta.copy(), tl.copy(), W,
+                      dash_free, mapper._mode, res))
+        return res
+    mapper._banded_pass = capture
+    runs, launches = [], None
+    for pass_ in ("fresh", "adapted"):
+        before = mapper.counters.as_dict()
+        counters = reset_launches()
+        n_calls = len(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = mapper.map_records(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: getattr(w, a) for k, (w, a) in counters.items()}
+        launches = launches or got
+        paths = dict(bd.align_scores_banded.path_launches)
+        after = mapper.counters.as_dict()
+        sha = golden.sha256("".join(x + "\n" for x in lines))
+        runs.append({"pass": pass_, "read_len": len(recs[0][1]),
+                     "wall_s": wall, "paf_lines": len(lines), "sha256": sha,
+                     "band_path_launches": paths,
+                     "realign_W": [c[4] for c in calls[n_calls:]],
+                     "bands": {f"{cap},{int(fc)}": band for (cap, fc), band
+                               in mapper._band_by_key.items()},
+                     "counters": {k: after[k] - before.get(k, 0)
+                                  for k in after if k != "cert_hit_rate"
+                                  and isinstance(after[k], (int, float))}})
+        name = f"megabase read, {pass_}"
+        check(runs[-1]["counters"]["faults"] == 0, f"{name}: a batch raised")
+        check(len(lines) == 1 and sha == pin["sha256"],
+              f"{name}: {len(lines)} PAF lines, sha256 {sha}, not the "
+              f"pinned {pin['sha256']}")
+        check(paths["epochs"] >= 1 and paths["scratch"] == 0,
+              f"{name}: the epochs path did not launch, or the scratch "
+              f"kernel did ({paths})")
+    realign = [c for c in calls if c[4] == W_MB]
+    check(runs[0]["realign_W"] == [W_MB] and realign,
+          f"the fresh pass realigned at {runs[0]['realign_W']}, not "
+          f"[{W_MB}]")
+    mapper._banded_pass = real
+    del mapper
+    torch.cuda.empty_cache()
+    mb_rows = megabase_rows(dev, realign[0],
+                            (cfg.match, cfg.mismatch, cfg.gap))
+    rows["band_score_epochs"] += mb_rows
+    return {"phase": "2E", "runs": runs, "launches": launches,
+            "pinned_by": pin["pinned_by"], "rows": mb_rows}
+
+
+def phase_megabase_trial(dev, parent: str = None) -> dict:
+    """Phase 1m (--megabase-trial [--parent DIR]): GOLDEN_MB's read through
+    this tree's CLI on the card (K2's "epochs" path) and, with ``parent``,
+    through the CLI of the tree there (before the "epochs" path: the
+    scratch kernel past the card's w_strip): rc, PAF lines, sha256, the
+    mapper's faults and the wall of each.  The pin of GOLDEN_MB comes from
+    such a run."""
+    genome, recs = megabase_records()
+    os.makedirs(WORK, exist_ok=True)
+    ref = os.path.join(WORK, "megabase_ref.fa")
+    reads = os.path.join(WORK, "megabase_reads.fq")
+    with open(ref, "w") as fh:
+        fh.write(">bench\n")
+        for i in range(0, len(genome), 80):
+            fh.write(genome[i:i + 80] + "\n")
+    with open(reads, "w") as fh:
+        for name, seq in recs:
+            fh.write(f"@{name}\n{seq}\n+\n{'5' * len(seq)}\n")
+    res = {"phase": "1m", "read_len": len(recs[0][1]), "cli": {}}
+    for name, root in (("this", REPO), ("parent", parent)):
+        if root is not None:
+            res["cli"][name] = cli_outcome(root, ref, reads, 3300)
+            emit({"phase": "1m", "cli": {name: res["cli"][name]}})
+    got = res["cli"]["this"]
+    check(got["rc"] == 0 and got["faults"] == 0 and got["paf_lines"] == 1,
+          f"this tree's CLI on the megabase read: {got}")
+    return res
+
+
+def phase_epoch_trial(dev) -> dict:
+    """Phase 1e (--epoch-trial; the library built with
+    BIOINFO1_BAND_EPOCH_TRIAL, which adds the halo of 32 lanes): K2's
+    "epochs" path at W = W_MB on one ~1.2 Mb read (a fragment of 1,196,000-
+    1,200,000 bases, ONT profile, against a region 3,000 bases longer), in
+    strips of each of STRIP_WIDTHS with halos of 32 and 64 lanes, every
+    output held to the first, each timed twice; and the launches alone,
+    the same call on an empty read (every CTA leaves at once).  The trial
+    behind ops/band.EPOCH_WIDTH and EPOCH_HALO."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    rng = np.random.default_rng(bench_torch.SEED + 73)
+    n, m = 1_200_000, 1_203_000
+    ln = int(rng.integers(1_196_000, 1_200_001))
+    tgt = sim.random_genome(ln + 3000, rng)
+    qry = sim.mutate_read(tgt[:ln], rng)[:n]
+    qa = np.zeros((1, n), np.uint8)
+    ta = np.zeros((1, m), np.uint8)
+    qa[0, :len(qry)], ta[0, :len(tgt)] = qry, tgt
+    q, t = (torch.from_numpy(x).to(dev) for x in (qa, ta))
+    ql, tl = (torch.tensor([v], dtype=torch.int32, device=dev)
+              for v in (len(qry), len(tgt)))
+    empty = torch.zeros(1, dtype=torch.int32, device=dev)
+    sc = (1, -1, -1)
+    res = {"phase": "1e", "W": W_MB, "n": len(qry), "m": len(tgt),
+           "rows": []}
+    want = None
+    for halo in (64, 32):
+        for S in bd.STRIP_WIDTHS:
+            with band_plan_as(epochs_at(S, halo)):
+                def run(a=ql, b=tl):
+                    return bd.align_scores_banded(q, a, t, b, *sc, band=W_MB,
+                                                  mode=0, dash_free=True)
+                got = run()
+                if want is None:
+                    want = got
+                check(max_abs_err(got, want) == 0,
+                      f"epochs at S={S}, H={halo} differ")
+                row = {"width": S, "halo": halo,
+                       "ms": [cuda_ms(run, 1) for _ in range(2)],
+                       "empty_ms": cuda_ms(lambda: run(empty, empty), 1),
+                       "launches": -(-bd.band_shapes(n, m, W_MB)[3]
+                                     // (2 * halo))}
+            res["rows"].append(row)
+            emit({"phase": "1e", "row": row})
+    res["score"] = int(want.score[0])
+    return res
+
+
 # csrc/lis_chain.cu's line that starts each chunk's q_lo scan at the wide
 # path's search (--wide-trial times the prologue without it).
 SCAN_START = "start = hit ? lo + __ffs(hit) - 1 : hi;"
@@ -3019,24 +3440,9 @@ def phase_wide_trial(dev, parent: str = None) -> dict:
     ref, reads = golden.write_inputs(pin["recipe"],
                                      os.path.join(WORK, "golden_4mb"),
                                      pin["runs"][0])
-    res["read_4mb"] = {}
-    for name, root in (("this", REPO), ("parent", parent)):
-        if root is None:
-            continue
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "bioinfo1_tpu_torch.cli", "--profile",
-             ref, reads], cwd=root, capture_output=True, text=True,
-            timeout=900, env=dict(os.environ, BIOINFO1_BAND_CACHE="0"))
-        lines = proc.stdout.splitlines()
-        res["read_4mb"][name] = {
-            "root": root, "rc": proc.returncode, "paf_lines": len(lines),
-            "sha256": golden.sha256(proc.stdout),
-            "faults": (parse_profile(proc.stderr)["mapper"]["faults"]
-                       if proc.returncode == 0 else None),
-            "errors": sorted({x for x in proc.stderr.splitlines()
-                              if x.startswith("ERROR")})[:4],
-            "wall_s": time.perf_counter() - t0}
+    res["read_4mb"] = {name: cli_outcome(root, ref, reads, 900)
+                       for name, root in (("this", REPO), ("parent", parent))
+                       if root is not None}
     got = res["read_4mb"]["this"]
     check(got["rc"] == 0 and got["faults"] == 0
           and got["sha256"] == pin["runs"][0]["sha256"],
@@ -3200,18 +3606,8 @@ def pairs_100k(rng, dev, B: int = N_ULTRA_READS) -> list:
     """The shape 100 kb reads give K2 in their realign pass: B reads of
     ~96-100 kb against regions 3,000 bases longer, (B, n) = (8, 100000),
     m = 104000; W = 65,536."""
-    n, m = ULTRA_LEN, ULTRA_LEN + 4000
-    qa = np.zeros((B, n), np.uint8)
-    ta = np.zeros((B, m), np.uint8)
-    ql = np.zeros(B, np.int32)
-    tl = np.zeros(B, np.int32)
-    for b in range(B):
-        ln = int(rng.integers(96000, 100001))
-        tgt = sim.random_genome(ln + 3000, rng)
-        qry = sim.mutate_read(tgt[:ln], rng)[:n]
-        qa[b, :len(qry)], ql[b] = qry, len(qry)
-        ta[b, :len(tgt)], tl[b] = tgt, len(tgt)
-    return [torch.from_numpy(x).to(dev) for x in (qa, ql, ta, tl)]
+    return region_pairs(rng, dev, B, ULTRA_LEN, ULTRA_LEN + 4000,
+                        (96000, 100001), 3000)
 
 
 def phase_strip_trial(dev) -> dict:
@@ -3371,9 +3767,10 @@ def phase_repeat_and_roofline(dev) -> dict:
             "sol": sol, "launches": launches}
 
 
-def phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short) -> dict:
-    """The CPU runs of the port (plain versions) in parallel subprocesses,
-    each held byte for byte to the GPU run's lines of the same reads."""
+def start_cpu_crosscheck(ref, paths, recs, short) -> list:
+    """Phase 3's CPU runs of the port (plain versions), started in parallel
+    subprocesses: they run beside the GPU phases, and
+    finish_cpu_crosscheck holds them to the GPU runs."""
     env = dict(os.environ, BIOINFO1_PLATFORM="cpu", BIOINFO1_BAND_CACHE="0",
                OMP_NUM_THREADS="2")
     jobs = []
@@ -3396,6 +3793,21 @@ def phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short) -> dict:
              reads, "-o", out], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((key, flags, names, out, proc))
+    return jobs
+
+
+def stop_processes(jobs) -> None:
+    """Kills whatever of ``jobs`` (tuples ending in a Popen) still runs."""
+    for *_x, proc in jobs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_cpu_crosscheck(jobs, gpu_lines) -> dict:
+    """Phase 3: each CPU run of start_cpu_crosscheck held byte for byte to
+    the GPU run's lines of the same reads; the seconds are from the
+    collection's start."""
     t0 = time.perf_counter()
     res = {"phase": 3, "runs": []}
     try:
@@ -3415,10 +3827,7 @@ def phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short) -> dict:
                                 "byte_identical": True,
                                 "cpu_wall_s_since_start": dt})
     finally:
-        for *_x, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_processes(jobs)
     return res
 
 
@@ -3450,7 +3859,8 @@ def device_time(prof):
 
 # Kernel function names of csrc/, as a profiler names their launches.
 PORT_KERNELS = ("lis_chain_kernel", "band_reg_kernel", "band_scratch_kernel",
-                "band_strip_kernel", "full_score_kernel",
+                "band_strip_kernel", "band_epoch_kernel",
+                "band_epoch_merge_kernel", "full_score_kernel",
                 "walk_parents_kernel", "int32_probe_kernel")
 
 
@@ -3581,6 +3991,8 @@ def main() -> int:
               if "--parent" in sys.argv[1:] else None)
     full_trial = "--full-trial" in sys.argv[1:]
     strip_trial = "--strip-trial" in sys.argv[1:]
+    epoch_trial = "--epoch-trial" in sys.argv[1:]
+    megabase_trial = "--megabase-trial" in sys.argv[1:]
     split_trial = "--split-trial" in sys.argv[1:]
     shard_trial = "--shard-trial" in sys.argv[1:]
     process_trial = "--process-trial" in sys.argv[1:]
@@ -3590,6 +4002,8 @@ def main() -> int:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_LPT_TRIAL"
     if chain_profile:
         os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_CHAIN_PROFILE"
+    if epoch_trial:
+        os.environ["BIOINFO1_NVCC_DEFINES"] = "BIOINFO1_BAND_EPOCH_TRIAL"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
@@ -3641,6 +4055,12 @@ def main() -> int:
     if strip_trial:
         emit(phase_strip_trial(dev))
         return 0
+    if epoch_trial or megabase_trial:
+        if epoch_trial:
+            emit(phase_epoch_trial(dev))
+        if megabase_trial:
+            emit(phase_megabase_trial(dev, parent))
+        return 0
     if split_trial:
         emit(phase_split_trial())
         return 0
@@ -3672,26 +4092,32 @@ def main() -> int:
     emit(p2g)
     p2s, staged_lines = phase_staged(ref, paths, recs)
     emit(p2s)
-    p2d = phase_split(genome, recs, {"score": (score_lines, p2),
-                                     "c": (gpu_lines["c"], p2c["runs"][0])})
-    emit(p2d)
-    p2x = phase_shard(genome, recs, {"score": (score_lines, p2),
-                                     "c": (gpu_lines["c"], p2c["runs"][0])})
-    emit(p2x)
-    p2p = phase_processes(ref, paths[N_READS],
-                          {"score": (score_lines, p2),
-                           "c": (gpu_lines["c"], p2c["runs"][0])})
-    emit(p2p)
-    gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
-    p2l = phase_longread(dev)
-    emit(p2l)
-    p2u = phase_ultralong(dev)
-    emit(p2u)
-    emit(phase_c12(dev))
-    p2r = phase_repeat_and_roofline(dev)
-    emit(p2r)
-    torch.cuda.empty_cache()
-    emit(phase_cpu_crosscheck(ref, paths, recs, gpu_lines, short))
+    # Phase 3's CPU runs go beside phases 2d-2r (the CLI phases before them
+    # keep the host's cores to themselves); a phase that fails stops them.
+    cpu_jobs = start_cpu_crosscheck(ref, paths, recs, short)
+    try:
+        both = {"score": (score_lines, p2),
+                "c": (gpu_lines["c"], p2c["runs"][0])}
+        p2d = phase_split(genome, recs, both)
+        emit(p2d)
+        p2x = phase_shard(genome, recs, both)
+        emit(p2x)
+        p2p = phase_processes(ref, paths[N_READS], both)
+        emit(p2p)
+        gpu_lines.update(staged_lines, score=score_lines, **nocert_lines)
+        p2l = phase_longread(dev)
+        emit(p2l)
+        p2u = phase_ultralong(dev)
+        emit(p2u)
+        emit(phase_c12(dev))
+        p2e = phase_megabase(dev, rows)
+        emit(p2e)
+        p2r = phase_repeat_and_roofline(dev)
+        emit(p2r)
+        torch.cuda.empty_cache()
+        emit(finish_cpu_crosscheck(cpu_jobs, gpu_lines))
+    finally:
+        stop_processes(cpu_jobs)
     if profile_map:
         emit(phase_profile(genome, recs))
 
@@ -3699,11 +4125,13 @@ def main() -> int:
     # K1-K3, the 50 kb run (phase 2L) for K2's cluster path, the 100 kb
     # runs (phase 2U: the planned fresh pass, the -c run) for K2's and K4's
     # strip path, the ~150 kb read's planned fresh pass (phase 2U) for K1's
-    # wide path, the -c runs (phase 2c) for K4 and K5, the roofline (phase
-    # 2r) for K6.
+    # wide path, the megabase read's fresh pass (phase 2E) for K2's
+    # "epochs" path, the -c runs (phase 2c) for K4 and K5, the roofline
+    # (phase 2r) for K6.
     path_launches = dict(p2["launches"])
     path_launches["band_score_cluster"] = p2l["launches"]["band_score_cluster"]
     path_launches["band_score_strip"] = p2u["launches"]["band_score_strip"]
+    path_launches["band_score_epochs"] = p2e["launches"]["band_score_epochs"]
     path_launches["lis_chain_wide"] = p2u["golden"]["launches"][
         "lis_chain_wide"]
     path_launches["band_parents_strip"] = p2u["cigar"]["launches"][

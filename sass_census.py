@@ -179,13 +179,22 @@ def band_strip_needle(parents: bool, dash_free: bool, mode: int) -> str:
             f"Li{mode}E")
 
 
+def band_epoch_needle(dash_free: bool, mode: int, halo: int) -> str:
+    """The part of a ``band_epoch_kernel`` instantiation's mangled name
+    that tells it from the others (kDashFree, kMode, H; K2 only)."""
+    return f"band_epoch_kernelILb{int(dash_free)}ELi{mode}ELi{halo}E"
+
+
 def plan_needle(plan, parents: bool, dash_free: bool = True,
                 mode: int = 0) -> str:
     """The needle of the kernel that serves an ``ops/band.BandPlan`` on a
-    register path: ``band_reg_needle``, or ``band_strip_needle`` on the
-    strip path (the same pair loops inside its epochs)."""
+    register path: ``band_reg_needle``, ``band_strip_needle`` on the strip
+    path (the same pair loops inside its epochs), or ``band_epoch_needle``
+    on the "epochs" path (the same pair loops, one epoch a launch)."""
     if plan.path == "strip":
         return band_strip_needle(parents, dash_free, mode)
+    if plan.path == "epochs":
+        return band_epoch_needle(dash_free, mode, plan.halo)
     return band_reg_needle(parents, dash_free, mode, plan.lpt,
                            plan.path != "warp", plan.path == "cluster")
 

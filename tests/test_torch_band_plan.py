@@ -3,8 +3,9 @@
 ``ops/band.band_plan`` decides, from W alone, which kernel of
 csrc/band_score.cu serves a band (lanes in registers up to ``W_REG`` in one
 CTA, up to ``W_CLUSTER`` over the CTAs of a thread-block cluster, up to
-``W_STRIP`` in strips on co-resident CTAs, the scratch kernel above) and
-its launch shape; it is held here for every W a caller can ask for.  The register kernels lean on two facts of the
+``W_STRIP`` in strips on co-resident CTAs; above it K2 in strips run one
+epoch a launch, "epochs", and K4 on the scratch kernel) and its launch
+shape; it is held here for every W a caller can ask for.  The register kernels lean on two facts of the
 function itself, pinned on the port's plain version and on the JAX Pallas
 kernel in interpret mode (as ``tests/test_torch_band.py`` runs it), exact
 equality:
@@ -58,12 +59,22 @@ def test_band_plan_every_width(want_parents, B):
             assert plan.threads_per_cta == plan.strip // 8 + 8
             assert plan.scratch_ints == plan.strips * tband.STRIP_REC_INTS
             assert plan.smem_bytes == tband.REG_SMEM_BYTES
-    # Past the strips' limit, the scratch kernel: its diagonals live in
-    # shared memory or in global scratch, never both.
+    # Past the strips' limit, K2 takes the "epochs" path (its state in a
+    # per-read device scratch) and K4 the scratch kernel, whose diagonals
+    # live in shared memory or in global scratch, never both.
     for W in (tband.W_STRIP + 128, 2 * tband.W_STRIP):
         plan = tband.band_plan(W, B, want_parents)
-        assert plan.path == "scratch" and plan.reads_per_cta == 1
-        state = 3 * W + (W // 4 if want_parents else 0)
+        assert plan.reads_per_cta == 1
+        if not want_parents:
+            S, H = tband.EPOCH_WIDTH, tband.EPOCH_HALO
+            assert plan.path == "epochs" and plan.lpt == 8
+            assert (plan.strip, plan.strips, plan.halo) == (S, -(-W // S), H)
+            assert plan.threads_per_cta == (S + 2 * H) // 8 <= 1024
+            assert plan.scratch_ints == 6 * W + 8 * plan.strips
+            assert plan.smem_bytes == tband.REG_SMEM_BYTES
+            continue
+        assert plan.path == "scratch"
+        state = 3 * W + W // 4
         assert (plan.smem_bytes, plan.scratch_ints) == (0, state), W
 
 
@@ -126,7 +137,8 @@ def test_cluster_plan_tiles_the_band(want_parents):
 def test_strip_plan_boundaries():
     """32,768 lanes take the cluster path, 32,896 strips, up to W_STRIP
     (the widest band whose strips of one read are all resident on an H100
-    SXM at once); the scratch kernel only past it.  The kernel's halo
+    SXM at once); past it K2's "epochs" path and K4's scratch kernel.
+    The kernel's halo
     needs a last strip of at least STRIP_HALO lanes and an epoch that ends
     on a parent byte."""
     card = tband.H100_SXM
@@ -142,7 +154,8 @@ def test_strip_plan_boundaries():
             assert tband.band_plan(tband.W_STRIP, B, parents).path == \
                 "strip"
             assert tband.band_plan(tband.W_STRIP + 128, B,
-                                   parents).path == "scratch"
+                                   parents).path == ("scratch" if parents
+                                                     else "epochs")
     for W in range(tband.W_CLUSTER + 128, 140000, 128 * 7):
         plan = tband.band_plan(W, 3, False)
         last = W - (plan.strips - 1) * plan.strip
@@ -242,6 +255,59 @@ def test_strip_plan_fits_the_card(card):
                            card).path == "scratch"
     with pytest.raises(ValueError):
         tband.strip_plan(card.w_strip + 128, 1, card)
+
+
+# Bands past a card's w_strip that callers ask for: the first multiple of
+# 128, a fused band of the 1,572,864 bucket (cap / 2), the realign band of
+# reads past ~1.1 Mb (2^20), and a band past what any read takes.
+PAST = (128, 4096, 786432 - 540672, 1048576 - 540672)
+
+
+@pytest.mark.parametrize("card", CARDS, ids=lambda c: f"{c.sms}x{c.per_sm}")
+def test_epochs_plan_past_the_cards_w_strip(card):
+    """Past the card's own w_strip, K2 plans "epochs" (every strip of every
+    read in each epoch's launch: no read group, no residency) and K4 the
+    scratch kernel, for any B; at and below it nothing moves: K2 and K4
+    take the same plan, never "epochs"."""
+    for W in sorted({card.w_strip + x for x in PAST} | {786432, 1048576}):
+        if W <= card.w_strip:
+            continue
+        for B in (1, 2, 8, 37):
+            plan = tband.band_plan(W, B, False, card)
+            assert plan == tband.epoch_plan(W), (W, B)
+            assert plan.path == "epochs" and plan.reads_per_launch == 0
+            assert tband.band_plan(W, B, True, card) == \
+                tband.scratch_plan(W, True)
+    for W in (32768, 32896, 65536, card.w_strip - 128, card.w_strip):
+        if W > card.w_strip:
+            continue
+        for B in (1, 8, 37):
+            k2, k4 = (tband.band_plan(W, B, p, card) for p in (False, True))
+            assert k2 == k4 and k2.path != "epochs", (W, B)
+
+
+def test_epoch_plan_shape():
+    """The "epochs" plan: an epoch of 2H diagonals divides 128, so it
+    divides every W and W + 2 starts an epoch (each epoch is all border or
+    all interior); strips of EPOCH_WIDTH lanes, the last one ragged; the
+    per-read state of csrc/band_score.cu epoch_state_ints; any multiple of
+    128 when called directly, strips up to W_REG lanes."""
+    H = tband.EPOCH_HALO
+    assert 128 % (2 * H) == 0 and H % 8 == 0
+    assert tband.EPOCH_WIDTH % 128 == 0 and tband.EPOCH_WIDTH <= tband.W_REG
+    for W in (128, 640, 540800, 1048576, 1048576 + 128):
+        for width in (128, 1024, 4096):
+            plan = tband.epoch_plan(W, width)
+            assert plan.strips == -(-W // width)
+            assert 0 < W - (plan.strips - 1) * width <= width
+            assert plan.threads_per_cta == (width + 2 * H) // 8
+            assert plan.scratch_ints == tband.epoch_state_ints(W,
+                                                               plan.strips)
+            assert plan.halo == H and plan.cluster == 1
+    assert tband.epoch_plan(1048576, 1024, halo=32).threads_per_cta == 136
+    for W, width in ((100, 128), (0, 128), (640, 100), (640, 8192)):
+        with pytest.raises(ValueError):
+            tband.epoch_plan(W, width)
 
 
 @pytest.mark.parametrize("W", [0, 100, 130, -128])

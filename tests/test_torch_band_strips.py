@@ -53,9 +53,16 @@ def _byte(rows, idx, limit, have):
 
 
 def strip_replay(q, ql, t, tl, scoring, W, mode, dash_free, S, H,
-                 merge_seed=0, swap=True):
+                 merge_seed=0, swap=True, slots=None, order=None):
     """(score, goal_i, goal_j, parents) of K2 / K4's strip path; without
-    ``swap`` the halos are never refreshed (a broken kernel)."""
+    ``swap`` the halos are never refreshed (a broken kernel).  With
+    ``slots`` the schedule of K2's "epochs" path instead (parents None):
+    each epoch is one launch in which the strips run one after another in
+    ``order`` (lane order by default), each loading its window from slot
+    k % slots of a band-lane buffer (the halo from its neighbours' owned
+    lanes, _NEG past the band), its bytes on the epoch's first diagonal by
+    index and its owned trackers, running the epoch alone, and storing its
+    owned lanes into slot (k + 1) % slots and its trackers."""
     match, mismatch, gap = scoring
     B, n = q.shape
     m = t.shape[1]
@@ -86,36 +93,37 @@ def strip_replay(q, ql, t, tl, scoring, W, mode, dash_free, S, H,
     best_d = np.zeros(shape, np.int64)
     cc, ci, rc, rj = (np.zeros((B, C), np.int64) for _ in range(4))
     score = np.zeros(B, np.int64)
-    parents = np.zeros((tband.parent_rows(n_steps), B, W), np.uint8)
+    parents = (None if slots else
+               np.zeros((tband.parent_rows(n_steps), B, W), np.uint8))
     # The owned lanes of every strip, in lane order: (strip, window column).
     own_c = np.concatenate([np.full(e - s, c) for c, (s, e)
                             in enumerate(zip(s0, s1))])
     own_x = np.concatenate([np.arange(H, H + e - s) for s, e in zip(s0, s1)])
-    neg = np.full((B, C, 1), NEG)
+    neg = np.full((B, 1, 1), NEG)
     reads = np.arange(B)
-    acc = None
-    for d in range(2, int(d_stop.max()) + 1):
-        if swap and d > 2 and (d - 2) % E == 0:
-            # The swap: both neighbours' outer H owned lanes into the halo.
-            for h in (h1, h2):
-                left, right = h[:, :-1, S:S + H].copy(), h[:, 1:, H:2 * H].copy()
-                h[:, 1:, :H] = left
-                h[:, :-1, S + H:] = right
+    acc = np.zeros(shape, np.int64)
+
+    def step(d, cs):
+        """Diagonal d of the strips ``cs`` (a slice), in place."""
         p = d & 1
         i0 = (d + W) // 2
-        i = i0 - lanes
+        ln = lanes[:, cs]
+        i = i0 - ln
         j = d - i
+        g1, g2 = h1[:, cs], h2[:, cs]
+        nb = np.broadcast_to(neg, (B, g1.shape[1], 1))
         if p == 0:
-            up = h1
-            left = np.concatenate([neg, h1[..., :-1]], axis=2)
-            left = np.where(lanes == 0, NEG, left)          # the wall
+            up = g1
+            left = np.concatenate([nb, g1[..., :-1]], axis=2)
+            left = np.where(ln == 0, NEG, left)             # the wall
         else:
-            up = np.concatenate([h1[..., 1:], neg], axis=2)
-            up = np.where(lanes == W - 1, NEG, up)          # the wall
-            left = h1
-        diag_v = h2 + np.where(qb == tb, match, mismatch)
-        left_v = left + (gap if dash_free else np.where(tb == DASH, 0, gap))
-        up_v = up + (gap if dash_free else np.where(qb == DASH, 0, gap))
+            up = np.concatenate([g1[..., 1:], nb], axis=2)
+            up = np.where(ln == W - 1, NEG, up)             # the wall
+            left = g1
+        bq, bt = qb[:, cs], tb[:, cs]
+        diag_v = g2 + np.where(bq == bt, match, mismatch)
+        left_v = left + (gap if dash_free else np.where(bt == DASH, 0, gap))
+        up_v = up + (gap if dash_free else np.where(bq == DASH, 0, gap))
         h = np.maximum(diag_v, left_v)
         par = (left_v > diag_v).astype(np.int64)
         take_d = up_v > h
@@ -129,24 +137,27 @@ def strip_replay(q, ql, t, tl, scoring, W, mode, dash_free, S, H,
             h = np.where((i < 0) | (j < 0), NEG, h)
         live = d <= d_stop                                  # (B,)
 
-        idx = d - 2
-        code = np.where(live[col], par << (2 * (idx & 3)), 0)
-        acc = code if idx & 3 == 0 else acc | code
-        store = live & ((idx & 3 == 3) | (d == d_stop))
-        if store.any():
-            parents[idx >> 2, store] = acc[store][:, own_c, own_x]
+        if parents is not None:
+            idx = d - 2
+            code = np.where(live[col], par << (2 * (idx & 3)), 0)
+            acc[:, cs] = code if idx & 3 == 0 else acc[:, cs] | code
+            store = live & ((idx & 3 == 3) | (d == d_stop))
+            if store.any():
+                parents[idx >> 2, store] = acc[store][:, own_c, own_x]
+        c0 = cs.start or 0
+        c1 = c0 + h.shape[1]
         if mode == 0:
             for b in np.flatnonzero(live & (ql + tl == d)):
                 ls = (tl[b] - ql[b] + W - p) // 2
-                if 0 <= ls < W:
+                if 0 <= ls < W and c0 <= ls // S < c1:
                     c = ls // S
-                    score[b] = h[b, c, ls - w0[c]]
+                    score[b] = h[b, c - c0, ls - w0[c]]
         elif mode == 1:
-            valid = (owned & (i >= 1) & (i <= ql[col]) & (j >= 1)
+            valid = (owned[:, cs] & (i >= 1) & (i <= ql[col]) & (j >= 1)
                      & (j <= tl[col]) & live[col])
-            upd = valid & (h > best)
-            best = np.where(upd, h, best)
-            best_d = np.where(upd, d, best_d)
+            upd = valid & (h > best[:, cs])
+            best[:, cs] = np.where(upd, h, best[:, cs])
+            best_d[:, cs] = np.where(upd, d, best_d[:, cs])
         else:
             # The last column's cell (i = d - tl) and the last row's (j =
             # d - ql), each tracked by the strip that owns its lane.
@@ -154,21 +165,69 @@ def strip_replay(q, ql, t, tl, scoring, W, mode, dash_free, S, H,
                     (cc, ci, d - tl, ql, i0 - (d - tl)),
                     (rc, rj, d - ql, tl, i0 - ql)):
                 c = np.clip(lane, 0, W - 1) // S
-                v = h[reads, c, np.clip(lane - w0[c], 0, Wn - 1)]
-                upd = (live & (pos >= 0) & (pos <= lim) & (lane >= 0)
+                here = (c >= c0) & (c < c1)
+                v = h[reads, np.clip(c - c0, 0, c1 - c0 - 1),
+                      np.clip(lane - w0[c], 0, Wn - 1)]
+                upd = (live & here & (pos >= 0) & (pos <= lim) & (lane >= 0)
                        & (lane < W) & (v > cost[reads, c]))
                 cost[reads[upd], c[upd]] = v[upd]
                 at[reads[upd], c[upd]] = pos[upd]
-        h2, h1 = h1, h
+        h2[:, cs], h1[:, cs] = g1, h
         if p == 0:      # target bytes move down one lane for odd d + 1
-            tb = np.concatenate([tb[..., 1:], t_at((d >> 1) + t_off
-                                                   + np.zeros((B, C, 1),
-                                                              np.int64))],
-                                axis=2)
+            tb[:, cs] = np.concatenate(
+                [bt[..., 1:], t_at((d >> 1) + t_off[:, cs]
+                                   + np.zeros((B, 1, 1), np.int64))],
+                axis=2)
         else:           # query bytes move up one lane for even d + 1
-            qb = np.concatenate([q_at(((d + 1 + q_w) >> 1)
-                                      + np.zeros((B, C, 1), np.int64)),
-                                 qb[..., :-1]], axis=2)
+            qb[:, cs] = np.concatenate(
+                [q_at(((d + 1 + q_w[:, cs]) >> 1)
+                      + np.zeros((B, 1, 1), np.int64)), bq[..., :-1]],
+                axis=2)
+
+    d_max = int(d_stop.max()) if B else 0
+    if slots:
+        # slot -> (read, ev / od, band lane): the two newest diagonals of
+        # every owned lane at an epoch's start; one copy of the trackers.
+        buf = np.full((slots, B, 2, W), NEG, np.int64)
+        keep = [np.full((B, W), NEG, np.int64), np.zeros((B, W), np.int64),
+                cc.copy(), ci.copy(), rc.copy(), rj.copy()]
+        for k, d0 in enumerate(range(2, d_max + 1, E)):
+            for c in (range(C) if order is None else order):
+                cs = slice(c, c + 1)
+                ln = lanes[0, c]
+                x = slice(H, H + s1[c] - s0[c])     # its owned columns
+                if k:
+                    inside = (ln >= 0) & (ln < W)
+                    at = np.clip(ln, 0, W - 1)
+                    slot = buf[k % slots]
+                    h2[:, c] = np.where(inside, slot[:, 0, at], NEG)
+                    h1[:, c] = np.where(inside, slot[:, 1, at], NEG)
+                    i = (d0 + W) // 2 - ln[None]
+                    qb[:, c], tb[:, c] = q_at(i), t_at(d0 - i)
+                    best[:, c] = np.where(owned[0, c], keep[0][:, at], NEG)
+                    best_d[:, c] = np.where(owned[0, c], keep[1][:, at], 0)
+                    for a, kept in zip((cc, ci, rc, rj), keep[2:]):
+                        a[:, c] = kept[:, c]
+                for d in range(d0, min(d0 + E, d_max + 1)):
+                    step(d, cs)
+                nxt = buf[(k + 1) % slots]
+                nxt[:, 0, s0[c]:s1[c]] = h2[:, c, x]
+                nxt[:, 1, s0[c]:s1[c]] = h1[:, c, x]
+                keep[0][:, s0[c]:s1[c]] = best[:, c, x]
+                keep[1][:, s0[c]:s1[c]] = best_d[:, c, x]
+                for a, kept in zip((cc, ci, rc, rj), keep[2:]):
+                    kept[:, c] = a[:, c]
+    else:
+        for d in range(2, d_max + 1):
+            if swap and d > 2 and (d - 2) % E == 0:
+                # The swap: both neighbours' outer H owned lanes into the
+                # halo.
+                for h in (h1, h2):
+                    left = h[:, :-1, S:S + H].copy()
+                    right = h[:, 1:, H:2 * H].copy()
+                    h[:, 1:, :H] = left
+                    h[:, :-1, S + H:] = right
+            step(d, slice(None))
 
     if mode == 0:
         on = (ql + tl >= 2) & (ql + tl == d_stop)
@@ -228,6 +287,8 @@ def _same(got, want, ql, tl, m_eff, what):
     for k, f in enumerate(("score", "goal_i", "goal_j")):
         np.testing.assert_array_equal(got[k], np.asarray(want[k]),
                                       err_msg=f"{f} vs {what}")
+    if got[3] is None:
+        return                                           # K2: no parents
     a = _cells(got[3], ql, tl, m_eff)
     b = _cells(np.asarray(want[3]), ql, tl, m_eff)
     assert int((a != 255).sum()) > 1000
@@ -288,19 +349,35 @@ CASES = [  # W, S, H
 ]
 
 
+# The schedules: the strip path's swap (every strip in lock step), and K2's
+# "epochs" path (two slots, the strips of a launch in lane order and in a
+# shuffled one; score and goal only, no parents).
+SCHEDULES = {"swap": {}, "epochs": {"slots": 2},
+             "epochs_shuffled": {"slots": 2, "order": "shuffled"}}
+
+
+def _schedule(name, W, S, seed):
+    kw = dict(SCHEDULES[name])
+    if kw.get("order") == "shuffled":
+        kw["order"] = np.random.default_rng(seed).permutation(-(-W // S))
+    return kw
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
 @pytest.mark.parametrize("W,S,H", CASES)
 @pytest.mark.parametrize("mode", [0, 1, 2])
-def test_strip_replay_matches_plain_and_jax(mode, W, S, H):
+def test_strip_replay_matches_plain_and_jax(mode, W, S, H, schedule):
     q, ql, t, tl = _edge_pairs(7 * W + mode, W, S, H)
     assert int((ql + tl).max()) > 8 * H                 # several epochs
     m_eff = tband.band_shapes(q.shape[1], t.shape[1], W)[2]
     assert int(tl.max()) <= q.shape[1] + W               # lax's m_eff too
     scoring = (1, -1, -1)
+    kw = _schedule(schedule, W, S, mode)
     # dash_free on the first case only (the plain version applies it; the
     # lax DP has the '-' rule always).
     for dash_free in (False, True)[:1 + (W == CASES[0][0])]:
         got = strip_replay(q, ql, t, tl, scoring, W, mode, dash_free, S, H,
-                           merge_seed=mode)
+                           merge_seed=mode, **kw)
         _same(got, _plain(q, ql, t, tl, scoring, W, mode, dash_free), ql, tl,
               m_eff, f"plain dash_free={dash_free}")
         if dash_free:
@@ -308,6 +385,8 @@ def test_strip_replay_matches_plain_and_jax(mode, W, S, H):
         lax_out, lax_codes = _lax_cells(q, ql, t, tl, scoring, W, mode)
         for k, f in enumerate(("score", "goal_i", "goal_j")):
             np.testing.assert_array_equal(got[k], lax_out[k], err_msg=f)
+        if got[3] is None:
+            continue                                     # K2: no parents
         mine = _cells(got[3], ql, tl, m_eff)
         rows = min(mine.shape[0], lax_codes.shape[0])
         inside = mine[:rows] != 255
@@ -315,8 +394,9 @@ def test_strip_replay_matches_plain_and_jax(mode, W, S, H):
                                       lax_codes[:rows][inside])
 
 
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
 @pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1), (2, -3, -2)])
-def test_strip_replay_under_tie_heavy_scorings(scoring):
+def test_strip_replay_under_tie_heavy_scorings(scoring, schedule):
     """Gap 0 and gap > 0 (no certificate: many ties in every mode) and a
     scoring of other weights, at W = 512 in strips of 128."""
     W, S, H = 512, 128, 32
@@ -324,7 +404,8 @@ def test_strip_replay_under_tie_heavy_scorings(scoring):
     m_eff = tband.band_shapes(q.shape[1], t.shape[1], W)[2]
     for mode in (0, 1, 2):
         got = strip_replay(q, ql, t, tl, scoring, W, mode, False, S, H,
-                           merge_seed=3 + mode)
+                           merge_seed=3 + mode,
+                           **_schedule(schedule, W, S, mode))
         _same(got, _plain(q, ql, t, tl, scoring, W, mode, False), ql, tl,
               m_eff, f"plain mode={mode}")
 
@@ -349,6 +430,37 @@ def test_strip_replay_needs_the_swap():
     stale = strip_replay(q, ql, t, tl, (1, -1, -1), W, 0, False, S, H,
                          swap=False)
     assert stale[0][0] < want[0][0]
+
+
+def _detour():
+    """A read whose path leaves the goal's strip by 30 lanes (a 60-base
+    insertion, 300 bases on, a 60-base deletion) and comes back."""
+    rng = np.random.default_rng(8)
+    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 500)]
+    detour = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 60)]
+    q = np.concatenate([g[:70], detour, g[70:370], g[430:500]])[None]
+    ql = tl = np.array([500], np.int32)
+    return q, ql, g[None].copy(), tl
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_epochs_need_two_slots(order):
+    """K2's "epochs" path with one slot: a strip that runs before its
+    neighbour in a launch overwrites the lanes the neighbour's halo still
+    has to load, so the neighbour starts its epoch from diagonals an epoch
+    too new, and the detour read scores wrong; with two slots the same
+    order gives the plain version's score.  Which neighbour goes first
+    decides which halo goes stale: both orders fail."""
+    W, S, H = 512, 128, 8
+    q, ql, t, tl = _detour()
+    want = _plain(q, ql, t, tl, (1, -1, -1), W, 0, False)
+    order = np.arange(W // S)[::1 if order == "forward" else -1]
+    got = strip_replay(q, ql, t, tl, (1, -1, -1), W, 0, False, S, H,
+                       slots=2, order=order)
+    assert got[0][0] == want[0][0]
+    one = strip_replay(q, ql, t, tl, (1, -1, -1), W, 0, False, S, H,
+                       slots=1, order=order)
+    assert one[0][0] != want[0][0]
 
 
 def _protocol(strips, epochs, slots, rng):

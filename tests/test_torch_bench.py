@@ -321,7 +321,8 @@ def test_band_interior_loop_counts_per_cell(lpt):
 
 def test_plan_needle_names_each_register_path():
     """The kernel that serves a plan: one warp (W = 256), several warps
-    (W = 512), a cluster (W = 25,088), strips (W = 32,896)."""
+    (W = 512), a cluster (W = 25,088), strips (W = 32,896), and past the
+    strips K2's epochs (W = 540,800)."""
     from bioinfo1_tpu_torch.ops import band as bd
     want = {256: "Lb0ELb0E", 512: "Lb1ELb0E", 25088: "Lb1ELb1E"}
     for W, tail in want.items():
@@ -333,6 +334,9 @@ def test_plan_needle_names_each_register_path():
         needle = sass.plan_needle(bd.band_plan(32896, 11, parents), parents,
                                   mode=2)
         assert needle == f"band_strip_kernelILb{int(parents)}ELb1ELi2E"
+    plan = bd.band_plan(bd.W_STRIP + 128, 1, False)
+    assert sass.plan_needle(plan, False, mode=1) == \
+        f"band_epoch_kernelILb1ELi1ELi{bd.EPOCH_HALO}E"
 
 
 # The walk kernel in miniature: a copy loop (cp.async, LDGSTS), the step

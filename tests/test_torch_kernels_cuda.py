@@ -606,6 +606,8 @@ def test_band_strip_occupancy_meets_the_plan(dev):
             assert plan.reads_per_launch * plan.strips <= card.held(
                 plan.strip), (W, B)
     assert bd.band_plan(card.w_strip + 128, 1, False, card).path == \
+        "epochs"
+    assert bd.band_plan(card.w_strip + 128, 1, True, card).path == \
         "scratch"
 
 
@@ -635,14 +637,15 @@ def test_band_scratch_kernel_matches_plain(dev, monkeypatch, mode):
 def test_band_scratch_path_past_the_strips(dev):
     """W = the card's widest strip band + 128 (540,800 lanes on an H100
     SXM): too wide for one read's strips to be resident at once, so
-    band_plan gives the scratch kernel; one read, K2 and K4 against the
-    plain version."""
+    band_plan gives K4 the scratch kernel and K2 the "epochs" path; one
+    read, each against the plain version."""
     W = bd.strip_card(dev).w_strip + 128
     assert bd.band_plan(W, 1, True, bd.strip_card(dev)).path == "scratch"
+    assert bd.band_plan(W, 1, False, bd.strip_card(dev)).path == "epochs"
     q, ql, t, tl = _pairs(np.random.default_rng(80), 1, 300, 400, dev)
     q, ql, t, tl = (x[:1].contiguous() for x in (q, ql, t, tl))
     ql[0], tl[0] = 300, 400
-    before = bd.align_scores_banded.path_launches["scratch"]
+    before = dict(bd.align_scores_banded.path_launches)
     _same(bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=W, mode=2),
           bd.align_scores_banded_plain(q, ql, t, tl, 1, -1, -1, band=W,
                                        mode=2))
@@ -650,10 +653,108 @@ def test_band_scratch_path_past_the_strips(dev):
                                  want_parents=True)
     want = bd.align_scores_banded_plain(q, ql, t, tl, 1, -1, -1, band=W,
                                         mode=0, want_parents=True)
-    assert bd.align_scores_banded.path_launches["scratch"] == before + 2
+    after = bd.align_scores_banded.path_launches
+    assert after["scratch"] == before["scratch"] + 1
+    assert after["epochs"] == before["epochs"] + 1
     for f in ("score", "goal_i", "goal_j"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     _parent_rows_equal(got.parents, want.parents, ql, tl, W, 300, 400)
+
+
+def _epoch_case(q, ql, t, tl, band, mode, dash_free, scoring):
+    """K2 on the "epochs" path as band_plan gives it, against the plain
+    version; one "epochs" call, no other path."""
+    plan = bd.band_plan(band, q.shape[0], False, bd.strip_card(q.device))
+    assert plan.path == "epochs"
+    args = (q, ql, t, tl, *scoring)
+    kw = dict(band=band, mode=mode, dash_free=dash_free)
+    before = dict(bd.align_scores_banded.path_launches)
+    got = bd.align_scores_banded(*args, **kw)
+    after = bd.align_scores_banded.path_launches
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(bd.PATHS, 0), epochs=1)
+    _same(got, bd.align_scores_banded_plain(*args, **kw))
+    return got
+
+
+# A card of 16 SMs (ops/band.StripCard(16, (2, 1, 1))): its strips end at
+# w_strip = 65,536 lanes, so K2 at 65,664 takes the "epochs" path: 33
+# strips of 2,048, the last of 128; the main diagonal (lane 32,832) on no
+# strip edge.
+SMALL_CARD = bd.StripCard(16, (2, 1, 1))
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("scoring", [(1, -1, 0), (1, -1, 1), (1, -1, -1)])
+def test_band_epoch_kernel_on_tie_heavy_pairs(dev, monkeypatch, scoring, B):
+    """Local goal ties and semiGlobal rim ties on tie-heavy pairs (empty
+    queries and targets, 1-tall and 1-wide matrices, reads that end in
+    every epoch of 128 diagonals), every mode, with dash_free on and off,
+    at a W forced past a small card's w_strip: each strip's trackers,
+    saved and loaded at every epoch, and the merge must pick what the
+    per-diagonal rules pick."""
+    monkeypatch.setattr(bd, "strip_card", lambda dev: SMALL_CARD)
+    W = SMALL_CARD.w_strip + 128
+    rng = np.random.default_rng(500 + B)
+    for dash in (False, True):
+        q, ql, t, tl = _tie_pairs(rng, B, 500, 800, dash, dev)
+        for mode in (0, 1, 2):
+            for dash_free in ((False,) if dash else (False, True)):
+                _epoch_case(q, ql, t, tl, W, mode, dash_free, scoring)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_band_epoch_kernel_against_scratch_past_w_strip(dev, monkeypatch,
+                                                         mode):
+    """W = 540,800, the first multiple of 128 past an H100 SXM's w_strip:
+    K2 on the "epochs" path (264 strips of 2,048 and one of 128) against
+    the scratch kernel it replaces there and the plain version, on pairs
+    whose paths wander over the main diagonal, both variants."""
+    W = 540800
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(90 + mode), 3,
+                                   900, 1300, 0, dev)
+    for dash_free in (False, True):
+        kw = dict(band=W, mode=mode, dash_free=dash_free)
+        with monkeypatch.context() as m:
+            m.setattr(bd, "strip_card", lambda dev: bd.H100_SXM)
+            got = _epoch_case(q, ql, t, tl, W, mode, dash_free, (1, -1, -1))
+        with monkeypatch.context() as m:
+            m.setattr(bd, "band_plan",
+                      lambda W, B, p, card=None: bd.scratch_plan(W, p))
+            _same(got, bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, **kw))
+
+
+@pytest.mark.parametrize("width", [128, 1024])
+def test_band_epoch_kernel_narrow_strips(dev, monkeypatch, width):
+    """The "epochs" kernel at strip widths a caller may name (the trial's):
+    strips of 128 lanes, as narrow as a strip gets, and of 1,024, at W =
+    4,224 and 8,320 (a ragged last strip), every mode."""
+    monkeypatch.setattr(bd, "band_plan",
+                        lambda W, B, p, card=None: bd.epoch_plan(W, width))
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(width), 5, 700,
+                                   1000, 0, dev)
+    for W in (4224, 8320):
+        for mode in (0, 1, 2):
+            _epoch_case(q, ql, t, tl, W, mode, True, (1, -1, -1))
+
+
+def test_band_epoch_refused_plan_raises(dev, monkeypatch):
+    """A plan the library was not built for (a halo of 32 lanes, strips of
+    8,192 lanes, or K4 on the "epochs" path) raises in the wrapper; nothing
+    falls back and no launch is counted."""
+    q, ql, t, tl = _crossing_pairs(np.random.default_rng(3), 2, 700, 1000,
+                                   0, dev)
+    for plan, parents in ((bd.epoch_plan(4224, 1024, halo=32), False),
+                          (dataclasses.replace(bd.epoch_plan(8320),
+                                               strip=8192), False),
+                          (bd.epoch_plan(4224), True)):
+        monkeypatch.setattr(bd, "band_plan",
+                            lambda W, B, p, card=None, plan=plan: plan)
+        before = dict(bd.align_scores_banded.path_launches)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            bd.align_scores_banded(q, ql, t, tl, 1, -1, -1, band=4224,
+                                   want_parents=parents)
+        assert bd.align_scores_banded.path_launches == before
 
 
 def test_band_kernel_ragged_last_cta(dev):

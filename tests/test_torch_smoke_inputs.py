@@ -279,6 +279,58 @@ def test_band_plan_as_swaps_the_plan_and_restores_it(smoke):
     assert bd.band_plan is planned
 
 
+def test_epochs_past_cluster_forces_k2_alone(smoke):
+    """Phase 2U's forced route (epochs_past_cluster) sends every score-only
+    band past W_CLUSTER to K2's "epochs" path and leaves K4 and the bands
+    up to W_CLUSTER as planned; the epoch trial's plan (epochs_at) names
+    its strip width and halo; both only for their body."""
+    from bioinfo1_tpu_torch.ops import band as bd
+    planned = bd.band_plan
+    with smoke.band_plan_as(smoke.epochs_past_cluster):
+        assert bd.band_plan(32896, 1, False) == bd.epoch_plan(32896)
+        assert bd.band_plan(65536, 8, False).path == "epochs"
+        assert bd.band_plan(65536, 1, True).path == "strip"
+        assert bd.band_plan(bd.W_STRIP + 128, 1, True).path == "scratch"
+        assert bd.band_plan(32768, 1, False).path == "cluster"
+        assert bd.band_plan(256, 11, False).path == "warp"
+    assert bd.band_plan is planned
+    with smoke.band_plan_as(smoke.epochs_at(1024, 32)):
+        plan = bd.band_plan(4224, 3, False)
+        assert (plan.path, plan.strip, plan.halo, plan.strips) == (
+            "epochs", 1024, 32, 5)
+    assert bd.band_plan is planned
+
+
+def test_megabase_read_is_the_pinned_recipe(smoke):
+    """Phase 2E's read: tests/torch_golden_mb.json's recipe (the bench's
+    genome, one ONT-profile read of a fragment of MB_FRAGMENT bases from
+    default_rng(SEED + MB_SEED_OFFSET)) gives a read of the pinned length
+    in the 1,572,864 length bucket, whose adapted fused band (at most cap
+    / 2 = 786,432) and realign band (2^20) both lie past an H100 SXM's
+    w_strip: K2's "epochs" path on both."""
+    import json
+
+    import bench_torch
+    from bioinfo1_tpu_torch.ops import band as bd
+    from bioinfo1_tpu_torch.pipeline import mapper as mp
+    with open(smoke.GOLDEN_MB) as fh:
+        pin = json.load(fh)
+    assert pin["recipe"] == {"genome": "bench_torch.make_data("
+                                       "bench_torch.FULL)",
+                             "reads_seed": bench_torch.SEED
+                             + smoke.MB_SEED_OFFSET,
+                             "fragment": smoke.MB_FRAGMENT}
+    assert len(pin["sha256"]) == 64 and pin["pinned_by"]
+    _, recs = smoke.megabase_records()
+    assert len(recs) == 1 and len(recs[0][1]) == pin["read_len"]
+    cap = mp._bucket_cap(pin["read_len"])
+    assert cap == 1572864
+    assert bd.W_STRIP < smoke.W_PAST_STRIP <= cap // 2 < smoke.W_MB
+    for W in (smoke.W_PAST_STRIP, cap // 2, smoke.W_MB):
+        assert bd.band_plan(W, 1, False).path == "epochs"
+        assert bd.band_plan(W, 1, True).path == "scratch"
+
+
 def test_cigar_score_rescores_the_mappers_cigars(smoke):
     """Phase 2U's -c check on the CPU: every CIGAR of a -c run spans its PAF
     line's extents (M + D query bases, M + I target bases) and
