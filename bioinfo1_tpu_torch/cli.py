@@ -386,7 +386,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
                         print(line, file=sink)
         counters.observe(len(local_records) - start_at,
                          sum(len(s) for _, s in local_records[start_at:]),
-                         mapper.counters.dp_cells, mapper.counters.mapped)
+                         mapper.counters.mapped)
         report()
         return 0
 
@@ -398,7 +398,6 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
             print(line, file=out)
         counters.observe(len(reads.records),
                          sum(len(s) for _, s in reads.records),
-                         mapper.counters.dp_cells,
                          sum(1 for line in lines if "\t" in line))
         report()
         return 0
@@ -431,8 +430,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
                 done += len(batch)
             paf_out.flush()
             _write_progress(progress_path, done, done, paf_out.tell())
-        counters.observe(done - start_at, n_bases, mapper.counters.dp_cells,
-                         mapper.counters.mapped)
+        counters.observe(done - start_at, n_bases, mapper.counters.mapped)
         report()
         return 0
 
@@ -447,7 +445,7 @@ def main(argv: Optional[List[str]] = None, stdout=None, stderr=None) -> int:
                             paf_out.tell())
     counters.observe(len(reads.records) - start_at,
                      sum(len(s) for _, s in reads.records[start_at:]),
-                     mapper.counters.dp_cells, mapper.counters.mapped)
+                     mapper.counters.mapped)
     report()
     return 0
 

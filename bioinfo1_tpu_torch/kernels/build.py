@@ -31,6 +31,8 @@ import time
 
 import torch
 
+from bioinfo1_tpu_torch.utils import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -232,13 +234,16 @@ def call(name: str, *args, device: torch.device) -> None:
 
 
 def launch(wrapper, name: str, *args, device: torch.device,
-           counter: str = "launches") -> None:
+           counter: str = "launches", path: str = "") -> None:
     """Call C entry point ``name`` with ``device`` (the tensors' device)
     current, so the library's own CUDA runtime launches there whatever
     device the calling thread had made current; raise on a CUDA error, else
     count one launch on ``wrapper.<counter>`` (``launches`` unless the
-    wrapper serves two kernels) and on ``launches_by_device``."""
+    wrapper serves two kernels), on ``launches_by_device`` and, by
+    (``name``, ``path``: the wrapper's plan, "" for one-path kernels), on
+    the record of the batch this thread runs (utils/tracing)."""
     call(name, *args, device=device)
+    tracing.count_launch(name, path)
     with _lock:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
         launches_by_device[device.index] = (

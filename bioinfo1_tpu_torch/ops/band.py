@@ -20,7 +20,8 @@ reads them).  Unlike the JAX wrapper, B is not padded to 128.
 ``align_scores_banded`` is the wrapper of kernels K2 (score only) and K4
 (with parents), both in csrc/band_score.cu: CUDA tensors launch a kernel
 (counted on ``align_scores_banded.launches`` and ``.parent_launches``, and
-by path of ``band_plan`` on ``.path_launches``),
+by path of ``band_plan`` on ``.path_launches`` and on the batch's record,
+utils/tracing),
 CPU tensors take ``align_scores_banded_plain``.  ``band_plan`` picks the
 kernel from W alone: lanes in registers up to ``W_REG`` in one CTA, up to
 ``W_CLUSTER`` across the CTAs of a thread-block cluster, up to the card's
@@ -514,10 +515,10 @@ def align_scores_banded(q_bytes: torch.Tensor, q_lens: torch.Tensor,
         if want_parents:
             build.launch(align_scores_banded, "bioinfo1_band_parents", *args,
                          parents.data_ptr(), stream, device=dev,
-                         counter="parent_launches")
+                         counter="parent_launches", path=plan.path)
         else:
             build.launch(align_scores_banded, "bioinfo1_band_score", *args,
-                         stream, device=dev)
+                         stream, device=dev, path=plan.path)
         with _path_lock:
             align_scores_banded.path_launches[plan.path] += 1
     return AlignOut(*out.unbind(0), parents=parents)

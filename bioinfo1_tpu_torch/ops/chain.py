@@ -10,7 +10,7 @@ endpoints are returned.
 launch the kernel, CPU tensors take ``lis_chain_plain``, the plain PyTorch
 version (a Python loop over i in place of the JAX ``fori_loop``).  It counts
 its launches on ``lis_chain.launches`` and by path of ``chain_plan`` on
-``lis_chain.path_launches``.
+``lis_chain.path_launches`` and on the batch's record (utils/tracing).
 
 K1 is a two-level DP over chunks of ``CHAIN_C`` matches: the predecessors
 of chunk k in finished chunks come from chunks [q_lo[k], k) only
@@ -212,7 +212,7 @@ def lis_chain(f_pos: torch.Tensor, r_pos: torch.Tensor,
             0 if q_lo is None else q_lo.data_ptr(), out.data_ptr(),
             CHAIN_PATHS.index(plan.path), plan.threads,
             torch.cuda.current_stream(f_pos.device).cuda_stream,
-            device=f_pos.device)
+            device=f_pos.device, path=plan.path)
         with _path_lock:
             lis_chain.path_launches[plan.path] += 1
     return ChainResult(*out.unbind(0))

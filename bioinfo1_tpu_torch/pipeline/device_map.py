@@ -14,9 +14,10 @@ strand select -> region gather, then
 The index is one device's copy (``DeviceIndex``) or the hash-range-sharded
 layout (``ShardedIndex``: each shard on its own device, the batch's lookup
 exchanged with them).  On CPU tensors every kernel wrapper takes its plain
-PyTorch version.  The stages carry ``record_function`` scopes
-(``step.minimize``, ``step.lookup``, ``step.chain``, ``step.regions``,
-``step.align``, ``step.walk``) that split the step's host time in a trace.
+PyTorch version.  The stages carry spans (utils/tracing.span:
+``step.minimize``, ``step.lookup``, ``step.chain``, ``step.regions``,
+``step.align``, ``step.walk``) that split the step's host time in a trace
+and in the batch's record.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bioinfo1_tpu_torch.ops import align as al
 from bioinfo1_tpu_torch.ops import band as bd
@@ -35,6 +35,7 @@ from bioinfo1_tpu_torch.ops import chain as chain_ops
 from bioinfo1_tpu_torch.ops import match as match_ops
 from bioinfo1_tpu_torch.ops import minimizer as mz
 from bioinfo1_tpu_torch.ops import trace as tr
+from bioinfo1_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -353,10 +354,10 @@ def _map_core(reads, lens, index: DeviceIndex | ShardedIndex, *, k, w,
     ``shard_axis`` switch); the lookup's exchange with the shards stays
     inside the ``step.lookup`` scope."""
     B, L = reads.shape
-    with record_function("step.minimize"):
+    with tracing.span("step.minimize"):
         mres = mz.minimize_batch(reads, lens, k, w,
                                  oob_end_windows=oob_end_windows)
-    with record_function("step.lookup"):
+    with tracing.span("step.lookup"):
         # Pack the ~2/(w+1) surviving slots left; the cap follows the
         # expected survivor count (+1 window of slack).  Reads with more
         # kept slots are flagged overflow and retry at a doubled budget.
@@ -376,7 +377,7 @@ def _map_core(reads, lens, index: DeviceIndex | ShardedIndex, *, k, w,
                 q_hash, q_pos, q_keep, index.key_hash, index.key_pos,
                 index.cnt_fr, index.cnt_r2, index.bucket_off, index.shift,
                 index.bsearch_steps, budget, index.cnt_shift)
-    with record_function("step.chain"):
+    with tracing.span("step.chain"):
         # One chain call over both strands' rows (rows are independent).
         both = chain_ops.lis_chain(
             torch.cat([got_f.f_pos, got_r.f_pos]).contiguous(),
@@ -386,7 +387,7 @@ def _map_core(reads, lens, index: DeviceIndex | ShardedIndex, *, k, w,
                                  dataclasses.fields(both)))
     cr = chain_ops.ChainResult(*(getattr(both, f.name)[B:] for f in
                                  dataclasses.fields(both)))
-    with record_function("step.regions"):
+    with tracing.span("step.regions"):
         use_fwd = cf.length >= cr.length          # ties forward (quirk #8)
         mapped = torch.where(use_fwd, cf.length, cr.length) > 0
         overflow = got_f.overflow | got_r.overflow | q_over
@@ -435,7 +436,7 @@ def map_step(reads: torch.Tensor, lens: torch.Tensor,
         reads, lens, index, k=k, w=w, budget=budget, region_cap=region_cap,
         oob_end_windows=oob_end_windows)
     inexact = torch.zeros_like(mapped)
-    with record_function("step.align"):
+    with tracing.span("step.align"):
         if band:
             bout = bd.align_scores_banded(q_win, q_len, t_win, t_len, match,
                                           mismatch, gap, band=band,
@@ -499,13 +500,13 @@ def map_step_cigar(reads: torch.Tensor, lens: torch.Tensor,
      q_win, t_win, q_len, t_len, need) = _map_core(
         reads, lens, index, k=k, w=w, budget=budget, region_cap=region_cap,
         oob_end_windows=oob_end_windows)
-    with record_function("step.align"):
+    with tracing.span("step.align"):
         out = bd.align_scores_banded(q_win, q_len, t_win, t_len, match,
                                      mismatch, gap, band=band, mode=mode,
                                      dash_free=dash_free, want_parents=True)
         certified = bd.certify(out.score, q_win, q_len, t_win, t_len, match,
                                mismatch, gap, band, strict=True, mode=mode)
-    with record_function("step.walk"):
+    with tracing.span("step.walk"):
         codes = tr.walk_parents(out.parents, out.goal_i, out.goal_j,
                                 out.score, q_win, t_win, match, mismatch,
                                 gap, mode)

@@ -48,11 +48,14 @@ every shard, and the rest of its step stays on its device.  The staged
 host path's per-strand tables stay one copy per device, as the JAX
 package's ``_map_bucket`` is not sharded either.
 
-The host steps carry ``record_function`` scopes that name them in a trace
-(utils/tracing.device_trace): ``map_batch``; ``fused`` with ``fused.pack``,
+The host steps carry spans (utils/tracing.span: ``record_function``
+scopes that name them in a trace, utils/tracing.device_trace, and add their
+time to the batch's record): ``index.build``, ``index.upload``;
+``batch#<id>`` around ``map_batch``; ``fused`` with ``fused.pack``,
 ``.upload``, ``.step``, ``.fetch`` and ``.adapt``; ``realign``,
 ``band_pass``, ``host_path``, ``decode``; and on the caller's thread
-``iter.wait`` (waiting for a batch) and ``format``.
+``iter.wait`` (waiting for a batch) and ``format``.  Each ``map_batch``
+call leaves a ``tracing.BatchRecord`` in ``tracing.batches``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bioinfo1_tpu_torch import native
 from bioinfo1_tpu_torch.index import builder
@@ -83,6 +85,7 @@ from bioinfo1_tpu_torch.ops import minimizer as mz
 from bioinfo1_tpu_torch.ops import trace as tr
 from bioinfo1_tpu_torch.parallel import shard as ps
 from bioinfo1_tpu_torch.pipeline import device_map as dm
+from bioinfo1_tpu_torch.utils import tracing
 from bioinfo1_tpu_torch.utils.runtime import resolve_device
 from bioinfo1_tpu_torch.utils.tracing import scoped
 
@@ -118,14 +121,14 @@ class MapperConfig:
 
 @dataclasses.dataclass
 class MapperCounters:
-    """Pipeline observability: DP problem-size cells, certificate hit rate,
-    retry counts, and where batch wall time goes (summed over worker
-    threads, so these can exceed the run's wall time)."""
+    """Pipeline observability: certificate hit rate, retry counts, and
+    where batch wall time goes (summed over worker threads, so these can
+    exceed the run's wall time).  Per ``map_batch`` call: utils/tracing's
+    batch records."""
 
     reads: int = 0
     mapped: int = 0
-    dp_cells: float = 0.0          # sum of region (n+1)*(m+1) for mapped reads
-    batches: int = 0
+    batches: int = 0               # fused calls, realign passes, host chunks
     cert_total: int = 0            # mapped reads through a certified path
     cert_hits: int = 0
     budget_retries: int = 0        # match-budget overflow reruns
@@ -139,14 +142,16 @@ class MapperCounters:
     t_host_s: float = 0.0          # staged host-path batches
     t_decode_s: float = 0.0        # native CIGAR decode
     t_format_s: float = 0.0        # stats + PAF serialization
+    t_index_build_s: float = 0.0   # the host index build (0 when loaded)
+    t_index_upload_s: float = 0.0  # first device_index(), to the sync
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
         if self.cert_total:
             d["cert_hit_rate"] = round(self.cert_hits / self.cert_total, 4)
-        for k in ("t_fused_s", "t_realign_s", "t_host_s", "t_decode_s",
-                  "t_format_s"):
-            d[k] = round(d[k], 3)
+        for k in d:
+            if k.startswith("t_"):
+                d[k] = round(d[k], 3)
         return d
 
 
@@ -383,6 +388,7 @@ class Mapper:
             raise ValueError("Mapper: give device or devices, not both")
         self.devices = ps.DeviceSet(devices)
         self.device = self.devices.devices[0]
+        self.counters = MapperCounters()
         # Only the first reference record is used (quirk #10).
         self.ref_name, reference = reference_records[0]
         if load_index:
@@ -390,12 +396,15 @@ class Mapper:
             self.index.ref_fwd_seq = reference
             self.index.ref_rev_seq = builder.reverse_complement_str(reference)
         else:
-            self.index = builder.build_index(
-                reference, cfg.k, cfg.w, cfg.f,
-                banned_rev_from_fwd=cfg.banned_rev_from_fwd,
-                threshold_from_rev_unique=cfg.threshold_from_rev_unique,
-                exact_ties=cfg.exact_ties,
-                oob_end_windows=cfg.oob_end_windows)
+            t_build = time.perf_counter()
+            with tracing.span("index.build"):
+                self.index = builder.build_index(
+                    reference, cfg.k, cfg.w, cfg.f,
+                    banned_rev_from_fwd=cfg.banned_rev_from_fwd,
+                    threshold_from_rev_unique=cfg.threshold_from_rev_unique,
+                    exact_ties=cfg.exact_ties,
+                    oob_end_windows=cfg.oob_end_windows)
+            self.counters.t_index_build_s = time.perf_counter() - t_build
         self.ref_len = len(reference)
         self._mode = al.MODE_BY_NAME[cfg.align_type]
         # Without a certificate a banded pass could never certify, so such
@@ -408,7 +417,6 @@ class Mapper:
         self._ref_dash_free = ("-" not in self.index.ref_fwd_seq
                                and "-" not in self.index.ref_rev_seq)
         self._dash_free_sticky = True
-        self.counters = MapperCounters()
         self._counters_lock = threading.Lock()   # map_batch runs on workers
         self._band_by_key: dict = {}     # (cap, for_cigar) -> band
         self._budget_boost: dict = {}    # cap -> pow-2 budget multiplier
@@ -421,20 +429,28 @@ class Mapper:
         first device outside a batch), packed at first use: replicated, one
         copy per device, uploaded to the first device and copied from there
         to the others; or, when ``_index_shard_count`` says so, split by
-        hash range over the entries (``ps.shard_index``)."""
+        hash range over the entries (``ps.shard_index``).  The first call
+        waits for the copies (``t_index_upload_s``)."""
         # Locked: two first batches racing here would upload it twice.
         with self._counters_lock:
             if self._device_index is None:
-                n_entries = (len(self.index.fwd.hash_sorted)
-                             + len(self.index.rev.hash_sorted))
-                if _index_shard_count(self.cfg.k, n_entries,
-                                      len(self.devices.devices)):
-                    self._device_index = ps.shard_index(self.index,
-                                                        self.devices)
-                else:
-                    self._device_index = ps.replicate_index(
-                        dm.device_index_from_host(self.index, self.device),
-                        self.devices)
+                t_up = time.perf_counter()
+                with tracing.span("index.upload"):
+                    n_entries = (len(self.index.fwd.hash_sorted)
+                                 + len(self.index.rev.hash_sorted))
+                    if _index_shard_count(self.cfg.k, n_entries,
+                                          len(self.devices.devices)):
+                        self._device_index = ps.shard_index(self.index,
+                                                            self.devices)
+                    else:
+                        self._device_index = ps.replicate_index(
+                            dm.device_index_from_host(self.index,
+                                                      self.device),
+                            self.devices)
+                    for d in self.devices.distinct():
+                        if d.type == "cuda":
+                            torch.cuda.synchronize(d)
+                self.counters.t_index_upload_s = time.perf_counter() - t_up
             return self._device_index[self.devices.current()]
 
     def _band_cache_path(self):
@@ -693,6 +709,7 @@ class Mapper:
             self.counters.batches += 1
             self.counters.realign_batches += 1
             self.counters.realign_chunks += res.chunks
+        tracing.count("realign_passes")
         results: List[ReadMapping] = []
         missed: List[int] = []
         for i in range(n_reads):
@@ -840,7 +857,7 @@ class Mapper:
         totals (key -1: the batch maximum)."""
         cfg = self.cfg
         floor = cfg.k + cfg.w - 1
-        with record_function("fused.pack"):
+        with tracing.span("fused.pack"):
             arr, lens = _pack_reads(
                 seqs, floor, len_to=_bucket_cap(max(len(s) for s in seqs),
                                                 floor))
@@ -857,12 +874,12 @@ class Mapper:
 
         def step(fn, band):
             """The fused step on the batch, its outputs as host arrays."""
-            with record_function("fused.upload"):
+            with tracing.span("fused.upload"):
                 reads_d, lens_d = self._to_device(arr, lens)
-            with record_function("fused.step"):
+            with tracing.span("fused.step"):
                 res = fn(reads_d, lens_d, self.device_index(), cfg.match,
                          cfg.mismatch, cfg.gap, band=band, **kw)
-            with record_function("fused.fetch"):
+            with tracing.span("fused.fetch"):
                 return res.to_numpy()
 
         n_real = len(seqs)
@@ -895,6 +912,7 @@ class Mapper:
         hint: dict = {}
         with self._counters_lock:
             self.counters.batches += 1
+        tracing.count("fused_calls")
         for i in range(n_real):
             if out.overflow[i]:
                 results.append(ReadMapping(mapped=False))
@@ -943,13 +961,15 @@ class Mapper:
         retry_need[-1] = int(out.need[:n_real].max())
         return results, retry, realign, hint, retry_need
 
-    @scoped("map_batch")
     def map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
         """Map one batch of reads on the next device in turn: the fused
         step under the budget ladder, the realign pass for certificate
         misses with a provable band, and the staged host path for the
-        rest."""
-        with self.devices.batch():
+        rest.  The call's record (utils/tracing.batch) wraps its
+        ``map_batch`` scope."""
+        with tracing.batch(len(seqs)) as rec, tracing.span("map_batch"), \
+                self.devices.batch() as dev:
+            rec.device = dev.index
             return self._map_batch(seqs)
 
     def _map_batch(self, seqs: Sequence[str]) -> List[ReadMapping]:
@@ -1033,6 +1053,7 @@ class Mapper:
                     # per-read Align throw and goes on).
                     with self._counters_lock:
                         self.counters.faults += 1
+                    tracing.count("faults")
                     print(f"ERROR: Exception during Align: {e}",
                           file=sys.stderr)
                     if kind != "host":
@@ -1095,6 +1116,8 @@ class Mapper:
                     self.counters.realign_reroutes += len(to_realign)
                     self.counters.host_fallbacks += (len(realign_s)
                                                      - len(to_realign))
+                if kind == "host":
+                    tracing.count("host_chunks")
                 for loc, i in enumerate(sub_idxs):
                     if loc in retry_s:
                         # Jump straight to a multiplier covering the exact
@@ -1122,17 +1145,10 @@ class Mapper:
             # row), so a read that needs more faults before this cap.
             if attempts >= 24:
                 break
-        cells = 0.0
-        n_mapped = 0
-        for r in results:
-            if r.mapped:
-                n_mapped += 1
-                cells += float((r.q_end - r.q_begin + 1)
-                               * (r.t_end - r.t_begin + 1))
+        n_mapped = sum(1 for r in results if r.mapped)
         with self._counters_lock:
             self.counters.reads += len(seqs)
             self.counters.mapped += n_mapped
-            self.counters.dp_cells += cells
         return results
 
     @scoped("format")
@@ -1221,7 +1237,7 @@ class Mapper:
 
         def complete_oldest():
             entries, chunk, fut, _cost = in_flight.pop(0)
-            with record_function("iter.wait"):
+            with tracing.span("iter.wait"):
                 mappings = fut.result()
             t_fmt = time.perf_counter()
             per_rec = self._format_chunk(chunk, mappings, per_read_stats)

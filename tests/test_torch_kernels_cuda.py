@@ -1109,6 +1109,42 @@ def test_dealt_batches_on_two_streams_match_one(dev, monkeypatch, cigar):
     assert mapper.counters.faults == 0
 
 
+@pytest.mark.parametrize("cigar", [False, True], ids=["score", "c"])
+def test_batch_records_count_the_kernels_the_trace_ties_to_them(
+        dev, monkeypatch, tmp_path, cigar):
+    """Each ``map_batch`` call's record (utils/tracing) counts its kernel
+    launches by (entry point, path); a trace of the run ties the same port
+    kernels, by the launch's correlation id and thread, to the call's
+    ``batch#<id>`` scope."""
+    from bioinfo1_tpu_torch.pipeline.mapper import Mapper, MapperConfig
+    from bioinfo1_tpu_torch.utils import tracing
+    monkeypatch.setenv("BIOINFO1_BAND_CACHE", "0")
+    rng = np.random.default_rng(21)
+    genome = simulate.random_genome(60000, rng)
+    recs = simulate.simulate_reads(genome, rng.integers(200, 3000, 96), rng)
+    mapper = Mapper([("g", genome.tobytes().decode("latin1"))],
+                    MapperConfig(batch_size=16, output_cigar=cigar),
+                    device=dev)
+    # Warm first, as the benchmark does before its stretch: in a second
+    # profiler session of one process the profiler has left a first
+    # batch's kernels untied to their launches (PERF.md, section 6).
+    mapper.map_records(recs)
+    with tracing.device_trace(str(tmp_path), dev):
+        lines = mapper.map_records(recs)
+    assert len(lines) >= len(recs) - 4 and mapper.counters.faults == 0
+    traced = tracing.batch_kernels(str(tmp_path / tracing.TRACE_FILE))
+    mine = [r for r in tracing.batches if r.id in traced]
+    assert len(mine) == len(traced) >= 4
+    assert len({r.thread for r in mine}) > 1
+    for r in mine:
+        assert traced[r.id] == r.launches, (r.id, traced[r.id], r.launches)
+        assert r.device == dev.index and r.t1_ns > r.t0_ns
+    entries = {e for r in mine for e, _path in r.launches}
+    assert {"bioinfo1_lis_chain", "bioinfo1_band_score"} <= entries
+    if cigar:
+        assert {"bioinfo1_band_parents", "bioinfo1_walk_parents"} <= entries
+
+
 def _lookup_queries(dev):
     """The compacted minimizer queries of ``_map_problem``'s batch on
     ``dev`` and its index."""
